@@ -1,0 +1,400 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of PixHomology on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py          # from the root of a checkout; one CUDA card
+
+Phases, each printing one JSON line (any failure raises, exit code != 0):
+
+1. device  — card name and power limit (nvidia-smi), torch and CUDA versions;
+2. build   — both CUDA kernels built from ``src/repro_torch/kernels/*/csrc``
+             with one ``nvcc`` per source, started together;
+3. phase_a — the phase-A kernel against its plain version, bitwise, over the
+             five dtypes, strip heights 1/8/16, ragged strips, a ramp, a
+             constant image, a wide image and the 4096² astro frame; timed
+             at 4096² float32;
+4. best_edge — the best-edge kernel against its plain version, bitwise, on
+             int32/int64 tie storms, all-dead edges, the full capacities of
+             the 4096² run, and the main path's own first-round instance;
+5. main    — ``PHEngine(PHConfig(merge_impl="boruvka", phase_c_impl="fused",
+             filter_level="filter_std")).run`` on the 4096² frame with the
+             device left at its default: regrow, Boruvka rounds, steady-state
+             wall time, per-stage device times, kernel launch counts (both
+             must be > 0), and bitwise equality with the plain-version run;
+6. batch   — ``run_batch`` of four 2048² frames equals four single runs;
+7. oracle  — at 256² (an astro frame, random uint8, random bfloat16) the port
+             on the card equals the numpy union-find oracle for the scan,
+             Boruvka-xla and Boruvka-fused merges.
+
+Then it prints the kernel table as one JSON line, the nvidia-smi line, and
+last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
+checkout, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
+MAIN_SIZE = 4096
+BATCH_SIZE = 2048
+ORACLE_SIZE = 256
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+
+    import numpy as np
+
+    from repro_torch.core import (diagram_to_numpy, persistence_oracle,
+                                  pixhomology)
+    from repro_torch.core.packed_keys import key_pad
+    from repro_torch.data import astro
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ph_phase_a import kernel as ka
+    from repro_torch.kernels.ph_phase_a import ref as ra
+    from repro_torch.kernels.ph_phase_c import kernel as kc
+    from repro_torch.kernels.ph_phase_c import ops as oc
+    from repro_torch.kernels.ph_phase_c import ref as rc
+    from repro_torch.ph import PHConfig, PHEngine
+
+    dev = torch.device("cuda")
+
+    def cuda_ms(fn, reps: int = 10) -> float:
+        """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    def same_diagram(a, b) -> bool:
+        return all(np.array_equal(x, y) for x, y in
+                   zip(diagram_to_numpy(a), diagram_to_numpy(b)))
+
+    # -- 1. device ---------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    emit("device", name=name, nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda, count=torch.cuda.device_count())
+
+    # -- 2. build ----------------------------------------------------------
+    build_s = _build.build_all([ka.LIBRARY, kc.LIBRARY])
+    emit("build", seconds=round(build_s, 3),
+         libraries=[str(ka.LIBRARY.library_path().relative_to(ROOT)),
+                    str(kc.LIBRARY.library_path().relative_to(ROOT))])
+
+    # -- 3. phase-A kernel vs plain ---------------------------------------
+    rng = np.random.default_rng(0)
+
+    def as_dtype(img: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+        if dtype == torch.uint8:
+            img = np.clip(np.abs(img), 0, 255)
+        t = torch.from_numpy(np.ascontiguousarray(img).astype(np.float32))
+        return t.to(dtype).to(dev).contiguous()
+
+    err = {"ph_phase_a": 0.0, "ph_phase_c": 0.0}
+
+    def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+        return float((a.double() - b.double()).abs().max()) if a.numel() \
+            else 0.0
+
+    def check_phase_a(x: torch.Tensor, s: int, label: str) -> None:
+        p_k, m_k = ka.phase_a(x, strip_rows=s)
+        p_r, m_r = ra.phase_a(x, strip_rows=s)
+        err["ph_phase_a"] = max(err["ph_phase_a"], max_abs_diff(p_k, p_r),
+                                max_abs_diff(m_k, m_r))
+        if not (torch.equal(p_k, p_r) and torch.equal(m_k, m_r)):
+            bad = int((p_k != p_r).sum() + (m_k != m_r).sum())
+            raise AssertionError(f"phase_a kernel != plain on {label} "
+                                 f"(S={s}): {bad} differing entries")
+
+    dtypes = (torch.uint8, torch.int16, torch.int32, torch.float32,
+              torch.bfloat16)
+    n_cases = 0
+    for dt in dtypes:
+        for shape in ((37, 53), (64, 64), (1, 29), (29, 1), (1, 1)):
+            gauss = rng.normal(size=shape) * 40
+            ties = rng.integers(0, 3, size=shape).astype(np.float64)
+            for kind, img in (("gauss", gauss), ("ties", ties)):
+                for s in (1, 8, 16):
+                    check_phase_a(as_dtype(img, dt), s, f"{kind}{shape}/{dt}")
+                    n_cases += 1
+        ramp = np.tile(np.arange(4096, dtype=np.float64) % 200, (24, 1))
+        check_phase_a(as_dtype(ramp, dt), 8, f"ramp/{dt}")
+        check_phase_a(as_dtype(np.full((33, 65), 7.0), dt), 8, f"const/{dt}")
+        n_cases += 2
+    wide = np.tile(np.arange(8192, dtype=np.float64), (20, 1))
+    check_phase_a(as_dtype(wide, torch.float32), 8, "wide ramp 20x8192")
+    batch = as_dtype(rng.normal(size=(3, 45, 70)) * 9, torch.bfloat16)
+    check_phase_a(batch, 8, "batch (3, 45, 70)")
+    frame = astro.generate_image(0, MAIN_SIZE)
+    x_main = torch.from_numpy(frame).to(dev)
+    for s in (1, 8, 16):
+        check_phase_a(x_main, s, f"astro {MAIN_SIZE}²")
+    n_cases += 5
+    n = MAIN_SIZE * MAIN_SIZE
+    a_ms = cuda_ms(lambda: ka.phase_a(x_main, strip_rows=8))
+    a_plain_ms = cuda_ms(lambda: ra.phase_a(x_main, strip_rows=8))
+    a_bytes = n * (4 + 4 + 4)            # read f32 image, write ptr + mask
+    a_bound_ms = a_bytes / HBM_BYTES_PER_S * 1e3
+    emit("phase_a", cases=n_cases, bitwise_equal=True, shape=[MAIN_SIZE] * 2,
+         dtype="float32", strip_rows=8, kernel_ms=a_ms, plain_ms=a_plain_ms,
+         bound_ms=a_bound_ms)
+
+    # -- 4/5. main path (drives the kernels; its first best-edge round is
+    #         captured for the best-edge timing below) ------------------------
+    cfg = PHConfig(merge_impl="boruvka", phase_c_impl="fused",
+                   filter_level="filter_std")
+    engine = PHEngine(cfg)                      # device left at its default
+    ka.LIBRARY.launches = 0
+    kc.LIBRARY.launches = 0
+    t0 = time.perf_counter()
+    res = engine.run(frame)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {"ph_phase_a": ka.LIBRARY.launches,
+                "ph_phase_c": kc.LIBRARY.launches}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"main path missed a kernel: {launches}")
+    mf, mc = res.regrow.final_max_features, res.regrow.final_max_candidates
+    if res.regrow.overflow or bool(res.diagram.overflow):
+        raise AssertionError("main path still overflows after regrow")
+
+    # Steady state: the regrow memo starts at the final capacities.
+    before = kc.LIBRARY.launches
+    t0 = time.perf_counter()
+    res2 = engine.run(frame)
+    torch.cuda.synchronize()
+    steady_ms = (time.perf_counter() - t0) * 1e3
+    rounds = kc.LIBRARY.launches - before
+    if res2.regrow.attempts or not same_diagram(res.diagram, res2.diagram):
+        raise AssertionError("steady-state run differs from the first run")
+
+    # Host-side parts of run(): the Variant-2 statistic and the upload.
+    t0 = time.perf_counter()
+    engine.auto_threshold(frame)
+    threshold_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    x_run = engine.cast_input(frame)
+    torch.cuda.synchronize()
+    cast_ms = (time.perf_counter() - t0) * 1e3
+
+    # Per-stage device times of the same computation (CUDA events between
+    # stage marks), with the kernels and with the plain versions.
+    tv = torch.tensor(res.threshold, dtype=torch.float32, device=dev)
+    stage_kw = dict(max_features=mf, max_candidates=mc, merge_impl="boruvka",
+                    phase_c_impl="fused", strip_rows=cfg.strip_rows)
+
+    def staged(use_pallas):
+        marks = []
+
+        def mark(stage: str) -> None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((stage, ev))
+
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        d = pixhomology(x_run, tv, mark=mark, use_pallas=use_pallas,
+                        **stage_kw)
+        torch.cuda.synchronize()
+        ms, prev = {}, start
+        for stage, ev in marks:
+            ms[stage] = prev.elapsed_time(ev)
+            prev = ev
+        if not same_diagram(d, res.diagram):
+            raise AssertionError(f"staged run (use_pallas={use_pallas}) "
+                                 f"differs from the engine run")
+        return ms
+
+    stage_ms = staged(None)
+    plain_stage_ms = staged(False)
+
+    # The plain versions on the card, same capacities: bitwise equal.
+    plain = PHEngine(cfg.replace(use_pallas=False, max_features=mf,
+                                 max_candidates=mc))
+    ka.LIBRARY.launches = kc.LIBRARY.launches = 0
+    t0 = time.perf_counter()
+    res_plain = plain.run(frame)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    if ka.LIBRARY.launches or kc.LIBRARY.launches:
+        raise AssertionError("use_pallas=False still launched a kernel")
+    if not same_diagram(res.diagram, res_plain.diagram):
+        raise AssertionError("kernel run != plain-version run at 4096²")
+
+    # Capture the main path's first Boruvka round (the largest instance).
+    captured = []
+    kernel_fn = kc.best_edge_reduce
+
+    def capture(key, ra_, rb_, nv):
+        if not captured:
+            captured.append((key.clone(), ra_.clone(), rb_.clone(), nv))
+        return kernel_fn(key, ra_, rb_, nv)
+
+    oc.kernel.best_edge_reduce = capture
+    try:
+        engine.run(frame)
+    finally:
+        oc.kernel.best_edge_reduce = kernel_fn
+
+    emit("main", shape=[MAIN_SIZE] * 2, config=json.loads(cfg.to_json()),
+         threshold=res.threshold, count=int(res.diagram.count),
+         n_unmerged=int(res.diagram.n_unmerged),
+         regrow_attempts=res.regrow.attempts, final_max_features=mf,
+         final_max_candidates=mc, boruvka_rounds=rounds,
+         first_call_s=first_s, steady_wall_ms=steady_ms,
+         plain_steady_wall_ms=plain_wall_ms, host_threshold_ms=threshold_ms,
+         host_cast_upload_ms=cast_ms, stage_ms=stage_ms,
+         plain_stage_ms=plain_stage_ms,
+         launches=launches, equals_plain=True)
+
+    # -- 4. best-edge kernel vs plain --------------------------------------
+    def check_best(key, ra_, rb_, nv, label):
+        b_k, w_k = kc.best_edge_reduce(key, ra_, rb_, nv)
+        b_r, w_r = rc.best_edge_reduce(key, ra_, rb_, nv)
+        err["ph_phase_c"] = max(err["ph_phase_c"], max_abs_diff(b_k, b_r),
+                                max_abs_diff(w_k, w_r))
+        if not (torch.equal(b_k, b_r) and torch.equal(w_k, w_r)):
+            raise AssertionError(f"best_edge kernel != plain on {label}")
+
+    def instance(e, nv, dtype, dead, keyspace):
+        pad = key_pad(dtype)
+        key = torch.from_numpy(rng.integers(-keyspace, keyspace, size=e))
+        key = torch.where(torch.from_numpy(rng.random(e) < dead), pad, key)
+        ends = [torch.from_numpy(rng.integers(0, nv, size=e).astype(np.int32))
+                for _ in range(2)]
+        return (key.to(dtype).to(dev), ends[0].to(dev), ends[1].to(dev), nv)
+
+    n_best = 0
+    full_e, full_nv = 8 * mc, mf
+    for dtype in (torch.int32, torch.int64):
+        for e, nv, dead, ks in ((1, 1, 0.0, 5), (7, 3, 0.3, 5),
+                                (1000, 17, 0.3, 3), (4096, 64, 1.0, 5),
+                                (100_000, 5000, 0.5, 10),
+                                (full_e, full_nv, 0.3, 1 << 20)):
+            check_best(*instance(e, nv, dtype, dead, ks),
+                       f"{dtype} E={e} nv={nv} dead={dead}")
+            n_best += 1
+    key, ra_, rb_, nv = captured[0]
+    check_best(key, ra_, rb_, nv, "main-path round 1")
+    n_best += 1
+    e_ms = cuda_ms(lambda: kc.best_edge_reduce(key, ra_, rb_, nv))
+    e_plain_ms = cuda_ms(lambda: rc.best_edge_reduce(key, ra_, rb_, nv))
+    pad = key_pad(key.dtype)
+    alive = key > pad
+    live = int(alive.sum())
+    drop = torch.full_like(ra_, nv)
+    lib_idx = torch.cat([torch.where(alive, ra_, drop),
+                         torch.where(alive, rb_, drop)]).long()
+    lib_src = torch.cat([key, key])
+    lib_best = torch.full((nv + 1,), pad, dtype=key.dtype, device=dev)
+    e_lib_ms = cuda_ms(lambda: lib_best.scatter_reduce_(0, lib_idx, lib_src,
+                                                        "amax"))
+    kb = key.element_size()
+    # Every key read once, the endpoints of live edges once, both tables
+    # written once.
+    e_bytes = key.numel() * kb + live * 8 + nv * (kb + 4)
+    e_bound_ms = e_bytes / HBM_BYTES_PER_S * 1e3
+    emit("best_edge", cases=n_best, bitwise_equal=True, edges=key.numel(),
+         live_edges=live, nv=nv, key_dtype=str(key.dtype),
+         kernel_ms=e_ms, plain_ms=e_plain_ms,
+         library_ms_scatter_reduce_amax=e_lib_ms, bound_ms=e_bound_ms)
+
+    # -- 6. batch ----------------------------------------------------------
+    frames = np.stack([astro.generate_image(i, BATCH_SIZE)
+                       for i in range(1, 5)])
+    batch_engine = PHEngine(cfg)
+    rb_res = batch_engine.run_batch(frames)
+    single = PHEngine(cfg.replace(
+        max_features=rb_res.regrow.final_max_features,
+        max_candidates=rb_res.regrow.final_max_candidates))
+    rows = diagram_to_numpy(rb_res.diagram)
+    for i in range(frames.shape[0]):
+        one = diagram_to_numpy(single.run(frames[i]).diagram)
+        if not all(np.array_equal(a[i], b) for a, b in zip(rows, one)):
+            raise AssertionError(f"run_batch row {i} != single run")
+    emit("batch", shape=list(frames.shape), counts=rows.count.tolist(),
+         regrow_attempts=rb_res.regrow.attempts,
+         final_max_features=rb_res.regrow.final_max_features,
+         final_max_candidates=rb_res.regrow.final_max_candidates,
+         equals_single_runs=True)
+
+    # -- 7. oracle ---------------------------------------------------------
+    s = ORACLE_SIZE
+    n_small = s * s
+    astro_small = astro.generate_image(5, s)
+    u8 = rng.integers(0, 256, size=(s, s)).astype(np.uint8)
+    bf = torch.from_numpy(rng.normal(size=(s, s)).astype(np.float32)).to(
+        torch.bfloat16)
+    images = {"astro_f32": (astro_small, astro_small),
+              "uint8": (u8, u8),
+              "bfloat16": (bf, bf.to(torch.float32).numpy())}
+    checked = {}
+    for label, (img, host) in images.items():
+        want = persistence_oracle(host)
+        for merge_impl, impl in (("scan", "fused"), ("boruvka", "xla"),
+                                 ("boruvka", "fused")):
+            eng = PHEngine(PHConfig(max_features=n_small,
+                                    max_candidates=n_small,
+                                    merge_impl=merge_impl,
+                                    phase_c_impl=impl))
+            got = eng.run(img).to_array()
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"oracle mismatch: {label} "
+                                     f"{merge_impl}/{impl}")
+        checked[label] = int(want.shape[0])
+    emit("oracle", size=s, features=checked,
+         merges=["scan", "boruvka/xla", "boruvka/fused"], equal=True)
+
+    # -- kernel table, card, result ----------------------------------------
+    kernels = [
+        {"name": "ph_phase_a", "route": "cuda",
+         "source": "src/repro_torch/kernels/ph_phase_a/csrc/phase_a.cu",
+         "replaces": "src/repro/kernels/ph_phase_a/kernel.py:52",
+         "launches": launches["ph_phase_a"],
+         "max_abs_err": err["ph_phase_a"],
+         "ms": a_ms, "plain_ms": a_plain_ms, "bound_ms": a_bound_ms,
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "ph_phase_c_best_edge", "route": "cuda",
+         "source": "src/repro_torch/kernels/ph_phase_c/csrc/best_edge.cu",
+         "replaces": "src/repro/kernels/ph_phase_c/kernel.py:42",
+         "launches": launches["ph_phase_c"],
+         "max_abs_err": err["ph_phase_c"],
+         "ms": e_ms, "plain_ms": e_plain_ms, "bound_ms": e_bound_ms,
+         "bound_by": "bytes", "library_ms": e_lib_ms},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,90 @@
+"""The port's hand-written CUDA kernels and engine on the card.
+
+Every test here needs a CUDA device (``cuda`` marker) and skips without
+one; the kernels have no CPU mode.  The file imports neither JAX nor the
+reference package, so it runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import diagram_to_numpy
+from repro_torch.data import astro
+from repro_torch.kernels.ph_phase_a import kernel as ka
+from repro_torch.kernels.ph_phase_a import ref as ra
+from repro_torch.kernels.ph_phase_c import kernel as kc
+from repro_torch.kernels.ph_phase_c import ref as rc
+from repro_torch.ph import PHConfig, PHEngine
+
+DTYPES = (torch.uint8, torch.int16, torch.int32, torch.float32,
+          torch.bfloat16)
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+
+def _image(dtype, shape, seed, levels=None):
+    rng = np.random.default_rng(seed)
+    img = (rng.integers(0, levels, size=shape) if levels
+           else rng.normal(size=shape) * 40)
+    if dtype == torch.uint8:
+        img = np.clip(np.abs(img), 0, 255)
+    return torch.from_numpy(img.astype(np.float32)).to(dtype).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_phase_a_kernel_matches_plain_version(dtype):
+    _need_cuda()
+    for shape in ((13, 9), (1, 17), (17, 1), (1, 1), (40, 300)):
+        for levels in (None, 3):
+            x = _image(dtype, shape, sum(shape), levels)
+            for s in (1, 3, 8, 16):
+                kp, km = ka.phase_a(x, strip_rows=s)
+                rp, rm = ra.phase_a(x, strip_rows=s)
+                assert torch.equal(kp, rp) and torch.equal(km, rm), \
+                    (dtype, shape, levels, s)
+    batch = _image(dtype, (3, 21, 30), 5)
+    kp, km = ka.phase_a(batch, strip_rows=8)
+    rp, rm = ra.phase_a(batch, strip_rows=8)
+    assert torch.equal(kp, rp) and torch.equal(km, rm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64])
+def test_best_edge_kernel_matches_plain_version(key_dtype):
+    _need_cuda()
+    rng = np.random.default_rng(0)
+    pad = torch.iinfo(key_dtype).min
+    for e, nv, dead in ((1, 1, 0.3), (7, 3, 0.3), (64, 5, 1.0),
+                        (1 << 20, 4096, 0.3)):
+        key = torch.from_numpy(rng.integers(-5, 5, size=e))
+        key = torch.where(torch.from_numpy(rng.random(e) < dead), pad, key)
+        key = key.to(key_dtype).cuda()
+        ra_, rb_ = (torch.from_numpy(rng.integers(0, nv, size=e)
+                                     .astype(np.int32)).cuda()
+                    for _ in range(2))
+        kb, kw = kc.best_edge_reduce(key, ra_, rb_, nv)
+        pb, pw = rc.best_edge_reduce(key, ra_, rb_, nv)
+        assert torch.equal(kb, pb) and torch.equal(kw, pw), (e, nv, dead)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge_impl,phase_c_impl",
+                         [("scan", "fused"), ("boruvka", "xla"),
+                          ("boruvka", "fused")])
+def test_engine_on_card_matches_cpu(merge_impl, phase_c_impl):
+    _need_cuda()
+    frame = astro.generate_image(2, 128)
+    cfg = PHConfig(merge_impl=merge_impl, phase_c_impl=phase_c_impl,
+                   filter_level="filter_std")
+    gpu = PHEngine(cfg).run(frame)
+    assert gpu.diagram.birth.is_cuda
+    cpu = PHEngine(cfg, device="cpu").run(frame)
+    for a, b in zip(diagram_to_numpy(cpu.diagram),
+                    diagram_to_numpy(gpu.diagram)):
+        np.testing.assert_array_equal(a, b)

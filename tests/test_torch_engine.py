@@ -1,0 +1,257 @@
+"""Port parity: the PHEngine facade (repro_torch.ph) vs repro.ph.
+
+Configs cross between the packages through JSON; ``run`` and uniform
+``run_batch`` give bitwise-equal diagrams and the same regrow capacities;
+the port never imports JAX or the reference package; and the engine runs
+on the CUDA device unless told otherwise.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from _torch_parity import assert_same_diagram
+from repro.data import astro as jastro
+from repro.ph import PHConfig as JConfig
+from repro.ph import PHEngine as JEngine
+from repro.ph import DeltaSpec, OverlapSpec, ServeSpec, TileSpec
+from repro_torch.core import persistence_oracle
+from repro_torch.data import astro as tastro
+from repro_torch.ph import FilterLevel, PHConfig, PHEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _bumpy(seed=0, shape=(8, 8)):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def _engine(**kw):
+    return PHEngine(PHConfig(**kw), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Configuration crosses between the packages
+# ---------------------------------------------------------------------------
+
+JSON_CASES = [
+    dict(),
+    dict(max_features=128, max_candidates=512, merge_impl="boruvka",
+         phase_c_impl="xla", filter_level="filter_std", strip_rows=4,
+         use_pallas=False, dtype="bfloat16", filtration="sublevel",
+         tournament_width=3, regrow_features_ceiling=1024),
+    dict(tile=dict(grid=(2, 4)), serve=dict(buckets=(64, (32, 48))),
+         delta=dict(cache_entries=2), overlap=dict(staging_depth=3),
+         merge_keys="rank", auto_regrow=False),
+]
+
+
+@pytest.mark.parametrize("fields", JSON_CASES)
+def test_config_json_round_trip_across_packages(fields):
+    spec = dict(fields)
+    jspec = dict(spec)
+    for name, cls in (("tile", TileSpec), ("serve", ServeSpec),
+                      ("delta", DeltaSpec), ("overlap", OverlapSpec)):
+        if name in jspec:
+            jspec[name] = cls(**jspec[name])
+    jcfg = JConfig(**jspec)
+    tcfg = PHConfig.from_json(jcfg.to_json())
+    assert tcfg.to_json() == jcfg.to_json()
+    assert tcfg.stage_signature() == jcfg.stage_signature()
+    assert tcfg.plan_key() == jcfg.plan_key()
+    back = JConfig.from_json(PHConfig(**spec).to_json())
+    assert back == jcfg
+    assert back.stage_signature() == PHConfig(**spec).stage_signature()
+
+
+def test_config_validation_matches_reference():
+    for bad in (dict(max_features=0), dict(merge_impl="bogus"),
+                dict(strip_rows=0), dict(filtration="sideways"),
+                dict(max_features=100, regrow_features_ceiling=10),
+                dict(tournament_width=1)):
+        with pytest.raises(ValueError):
+            JConfig(**bad)
+        with pytest.raises(ValueError):
+            PHConfig(**bad)
+    assert PHConfig(filter_level="filter_std").filter_level is FilterLevel.STD
+
+
+# ---------------------------------------------------------------------------
+# run / run_batch against the reference engine
+# ---------------------------------------------------------------------------
+
+def test_astro_frames_are_bitwise_equal():
+    for image_id, size in ((0, 64), (3, 33)):
+        np.testing.assert_array_equal(jastro.generate_image(image_id, size),
+                                      tastro.generate_image(image_id, size))
+    img = tastro.generate_image(1, 64)
+    for level in ("filter_light", "filter_std", "filter_heavy", "vanilla"):
+        assert tastro.filter_threshold(img, level) == \
+            jastro.filter_threshold(img, level)
+
+
+@pytest.mark.parametrize("merge_impl", ["boruvka", "scan"])
+def test_run_and_run_batch_filter_std_match_reference(merge_impl):
+    cfg = dict(max_features=512, max_candidates=1024, merge_impl=merge_impl,
+               filter_level="filter_std")
+    frame = tastro.generate_image(0, 64)
+    jres = JEngine(JConfig(**cfg)).run(frame)
+    tres = _engine(**cfg).run(frame)
+    assert tres.threshold == pytest.approx(jres.threshold, abs=0.0)
+    assert_same_diagram(jres.diagram, tres.diagram, "run filter_std")
+    assert vars(tres.regrow) == vars(jres.regrow)
+
+    frames = np.stack([tastro.generate_image(i, 32) for i in range(3)])
+    jb = JEngine(JConfig(**cfg)).run_batch(frames)
+    tb = _engine(**cfg).run_batch(frames)
+    np.testing.assert_array_equal(np.asarray(jb.threshold),
+                                  np.asarray(tb.threshold))
+    assert_same_diagram(jb.diagram, tb.diagram, "run_batch filter_std")
+    tb_list = _engine(**cfg).run_batch([frames[i] for i in range(3)])
+    for a, b in zip(tb.diagram, tb_list.diagram):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,mf,mc", [((8, 8), 2, 2), ((6, 6), 1, 1)])
+def test_regrow_reaches_reference_capacities(shape, mf, mc):
+    img = _bumpy(2, shape)
+    jeng = JEngine(JConfig(max_features=mf, max_candidates=mc))
+    teng = _engine(max_features=mf, max_candidates=mc)
+    jres, tres = jeng.run(img), teng.run(img)
+    assert vars(tres.regrow) == vars(jres.regrow)
+    assert tres.regrow.attempts >= 1 and not tres.regrow.overflow
+    assert tres.config.max_features == jres.config.max_features
+    assert_same_diagram(jres.diagram, tres.diagram, "regrown run")
+    np.testing.assert_array_equal(tres.to_array(), persistence_oracle(img))
+    assert teng.plan_stats()["regrows"] == jeng.plan_stats()["regrows"]
+    # Sticky: the second call starts at the remembered capacities.
+    again = teng.run(img)
+    assert again.regrow.attempts == 0
+    assert again.config.max_features == tres.config.max_features
+
+
+def test_run_batch_regrows_like_reference():
+    imgs = np.stack([_bumpy(s) for s in range(3)])
+    jres = JEngine(JConfig(max_features=2, max_candidates=4)).run_batch(imgs)
+    tres = _engine(max_features=2, max_candidates=4).run_batch(imgs)
+    assert vars(tres.regrow) == vars(jres.regrow)
+    assert not bool(tres.diagram.overflow.any())
+    assert_same_diagram(jres.diagram, tres.diagram, "regrown batch")
+
+
+def test_overflow_without_regrow_and_regrow_limits():
+    img = _bumpy(1, (16, 16))
+    eng = _engine(max_features=256, max_candidates=2, auto_regrow=False)
+    assert eng.num_candidates(img) > 2
+    res = eng.run(img)
+    assert bool(res.diagram.overflow)
+    assert res.regrow.attempts == 0 and res.regrow.overflow
+    assert eng.plan_stats()["regrows"] == 0
+
+    res = _engine(max_features=2, max_candidates=2, max_regrows=1).run(
+        _bumpy(3, (16, 16)))
+    assert res.regrow.attempts == 1 and res.config.max_features == 4
+    assert res.regrow.overflow
+    capped = _engine(max_features=4, max_candidates=4,
+                     regrow_features_ceiling=8,
+                     regrow_candidates_ceiling=8).run(_bumpy(3, (16, 16)))
+    assert capped.config.max_features <= 8
+    assert capped.config.max_candidates <= 8
+
+
+def test_plan_cache_reuse():
+    eng = _engine(max_features=64, max_candidates=64)
+    for seed in range(5):
+        eng.run(_bumpy(seed))
+    eng.run_batch(np.stack([_bumpy(s) for s in range(2)]))
+    eng.run_batch(np.stack([_bumpy(s) for s in range(2, 4)]))
+    stats = eng.plan_stats()
+    assert stats["plans"] == 2 and stats["traces"] == 2
+    assert stats["calls"] == 7 and stats["hits"] == 5
+
+
+def test_inputs_dtype_policy_and_errors():
+    eng = _engine(max_features=64, max_candidates=64)
+    img64 = _bumpy(0).astype(np.float64)
+    assert eng.cast_input(img64).dtype == torch.float32
+    bf = np.asarray(jnp.asarray(_bumpy(0), jnp.bfloat16))   # numpy bfloat16
+    x = eng.cast_input(bf)
+    assert x.dtype == torch.bfloat16
+    np.testing.assert_array_equal(x.float().numpy(),
+                                  bf.astype(np.float32))
+    ints = _engine(max_features=64, max_candidates=64, dtype="float32")
+    assert ints.run(np.arange(64, dtype=np.int32).reshape(8, 8)) \
+        .diagram.birth.dtype == torch.float32
+    with pytest.raises(ValueError):
+        eng.run(np.zeros((2, 3, 4), np.float32))
+    with pytest.raises(ValueError):
+        eng.run_batch(np.zeros((3, 4), np.float32))
+    with pytest.raises(ValueError, match="non-finite"):
+        eng.run(np.array([[1.0, np.inf]], np.float32))
+    with pytest.raises(TypeError):
+        eng.run(np.zeros((3, 3), np.complex64))
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        eng.run_batch([np.zeros((3, 3), np.float32),
+                       np.zeros((4, 3), np.float32)])
+
+
+def test_int_image_fractional_threshold_not_truncated():
+    img = np.zeros((5, 5), np.int32)
+    img[1, 1] = 12
+    img[3, 3] = 20
+    eng = _engine(max_features=25, max_candidates=25)
+    assert int(eng.run(img, truncate_value=12.5).diagram.count) == 1
+    assert int(eng.run(img, truncate_value=11.5).diagram.count) == 2
+
+
+# ---------------------------------------------------------------------------
+# Device policy and import hygiene
+# ---------------------------------------------------------------------------
+
+def test_default_device_is_cuda_and_never_falls_back():
+    if torch.cuda.is_available():
+        assert PHEngine().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            PHEngine()
+    assert PHEngine(device="cpu").device.type == "cpu"
+
+
+def test_port_import_leaves_jax_out():
+    code = ("import sys, repro_torch, repro_torch.ph, repro_torch.core, "
+            "repro_torch.data.astro; "
+            "import repro_torch.kernels.ph_phase_a, "
+            "repro_torch.kernels.ph_phase_c; "
+            "bad = sorted(m for m in sys.modules "
+            "if m == 'jax' or m.startswith(('jax.', 'repro.')) "
+            "or m == 'repro'); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_static_scan_port_imports_neither_jax_nor_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
