@@ -6,22 +6,41 @@
 Phases, each printing one JSON line (any failure raises, exit code != 0):
 
 1. device  — card name and power limit (nvidia-smi), torch and CUDA versions;
-2. build   — both CUDA kernels built from ``src/repro_torch/kernels/*/csrc``
-             with one ``nvcc`` per source, started together;
+2. build   — the four CUDA kernels built from
+             ``src/repro_torch/kernels/*/csrc`` with one ``nvcc`` per source,
+             started together;
 3. phase_a — the phase-A kernel against its plain version, bitwise, over the
              five dtypes, strip heights 1/8/16, ragged strips, a ramp, a
              constant image, a wide image and the 4096² astro frame; timed
              at 4096² float32;
-4. best_edge — the best-edge kernel against its plain version, bitwise, on
-             int32/int64 tie storms, all-dead edges, the full capacities of
-             the 4096² run, and the main path's own first-round instance;
+4. maxpool — the 3x3 pooling kernel (max+argmax, max, min) against its plain
+             version, bitwise, over the five dtypes at 1x1, 1x29, 29x1 and
+             37x53 (noise, heavy ties, borders equal to the pad fill: uint8
+             zeros, int32 minimum) and at 4096² (the float32 frame, int32
+             ties); timed at 4096² float32 beside ``max_pool2d``;
 5. main    — ``PHEngine(PHConfig(merge_impl="boruvka", phase_c_impl="fused",
              filter_level="filter_std")).run`` on the 4096² frame with the
              device left at its default: regrow, Boruvka rounds, steady-state
              wall time, per-stage device times, kernel launch counts (both
              must be > 0), and bitwise equality with the plain-version run;
-6. batch   — ``run_batch`` of four 2048² frames equals four single runs;
-7. oracle  — at 256² (an astro frame, random uint8, random bfloat16) the port
+6. best_edge — the best-edge kernel against its plain version, bitwise, on
+             int32/int64 tie storms, all-dead edges, the full capacities of
+             the 4096² run, and the main path's own first-round instance;
+7. paper   — the paper's Algorithm 1 (``phase_a_impl="pooled"``,
+             ``candidate_mode="paper"``, Boruvka-fused, ``filter_std``)
+             through ``run`` on the same frame: maxpool and best-edge
+             launches > 0, bitwise equal to the plain-version run; pooled
+             phase A with exact candidates equals the main diagram bitwise;
+8. batch   — ``run_batch`` of four 2048² frames equals four single runs;
+9. mixed_batch — ``run_batch`` of a survey batch of mixed shapes (2048²,
+             2048x1536, 1536², 1024x2048, 1000x1800 and a duplicate) padded
+             into one 2048² bucket: every row equals ``run`` on its frame,
+             the duplicate equals its twin;
+10. distance — ``distance_matrix`` over the rows of the mixed batch
+             (``n_dirs=16``): distance-kernel launches > 0, the kernel
+             against its plain version (bn bitwise, sw at rtol 1e-5),
+             exact symmetry and zero diagonal; timed against its bound;
+11. oracle — at 256² (an astro frame, random uint8, random bfloat16) the port
              on the card equals the numpy union-find oracle for the scan,
              Boruvka-xla and Boruvka-fused merges.
 
@@ -42,9 +61,14 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
+FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 MAIN_SIZE = 4096
 BATCH_SIZE = 2048
 ORACLE_SIZE = 256
+# The survey batch of the mixed_batch phase: (h, w) windows of 2048² frames.
+MIXED_SHAPES = ((2048, 2048), (2048, 1536), (1536, 1536), (1024, 2048),
+                (1000, 1800))
+N_DIRS = 16
 
 
 def emit(phase: str, **fields) -> None:
@@ -64,14 +88,28 @@ def main() -> int:
     from repro_torch.core.packed_keys import key_pad
     from repro_torch.data import astro
     from repro_torch.kernels import _build
+    from repro_torch.kernels.maxpool import kernel as kmp
+    from repro_torch.kernels.maxpool import ref as rmp
+    from repro_torch.kernels.ph_distance import kernel as kd
+    from repro_torch.kernels.ph_distance import ref as rd
     from repro_torch.kernels.ph_phase_a import kernel as ka
     from repro_torch.kernels.ph_phase_a import ref as ra
     from repro_torch.kernels.ph_phase_c import kernel as kc
     from repro_torch.kernels.ph_phase_c import ops as oc
     from repro_torch.kernels.ph_phase_c import ref as rc
     from repro_torch.ph import PHConfig, PHEngine
+    from repro_torch.pipeline.scheduler import bucket_shape
 
     dev = torch.device("cuda")
+    libraries = {"ph_phase_a": ka.LIBRARY, "ph_phase_c": kc.LIBRARY,
+                 "maxpool": kmp.LIBRARY, "ph_distance": kd.LIBRARY}
+
+    def reset_counts() -> None:
+        for lib in libraries.values():
+            lib.launches = 0
+
+    def read_counts() -> dict:
+        return {name: lib.launches for name, lib in libraries.items()}
 
     def cuda_ms(fn, reps: int = 10) -> float:
         """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
@@ -102,10 +140,10 @@ def main() -> int:
          cuda=torch.version.cuda, count=torch.cuda.device_count())
 
     # -- 2. build ----------------------------------------------------------
-    build_s = _build.build_all([ka.LIBRARY, kc.LIBRARY])
+    build_s = _build.build_all(list(libraries.values()))
     emit("build", seconds=round(build_s, 3),
-         libraries=[str(ka.LIBRARY.library_path().relative_to(ROOT)),
-                    str(kc.LIBRARY.library_path().relative_to(ROOT))])
+         libraries=[str(lib.library_path().relative_to(ROOT))
+                    for lib in libraries.values()])
 
     # -- 3. phase-A kernel vs plain ---------------------------------------
     rng = np.random.default_rng(0)
@@ -116,7 +154,7 @@ def main() -> int:
         t = torch.from_numpy(np.ascontiguousarray(img).astype(np.float32))
         return t.to(dtype).to(dev).contiguous()
 
-    err = {"ph_phase_a": 0.0, "ph_phase_c": 0.0}
+    err = {name: 0.0 for name in libraries}
 
     def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
         return float((a.double() - b.double()).abs().max()) if a.numel() \
@@ -165,20 +203,62 @@ def main() -> int:
          dtype="float32", strip_rows=8, kernel_ms=a_ms, plain_ms=a_plain_ms,
          bound_ms=a_bound_ms)
 
-    # -- 4/5. main path (drives the kernels; its first best-edge round is
-    #         captured for the best-edge timing below) ------------------------
+    # -- 4. maxpool kernel vs plain ----------------------------------------
+    def check_pool(x: torch.Tensor, label: str) -> None:
+        kv, kai = kmp.maxargmaxpool3x3(x)
+        rv, rai = rmp.maxargmaxpool3x3(x)
+        pairs = [(kv, rv), (kai, rai),
+                 (kmp.maxpool3x3(x), rmp.maxpool3x3(x)),
+                 (kmp.minpool3x3(x), rmp.minpool3x3(x))]
+        for got, want in pairs:
+            err["maxpool"] = max(err["maxpool"], max_abs_diff(got, want))
+            if not torch.equal(got, want):
+                bad = int((got != want).sum())
+                raise AssertionError(f"maxpool kernel != plain on {label}: "
+                                     f"{bad} differing entries")
+
+    n_pool = 0
+    for dt in dtypes:
+        fill = float("-inf") if dt.is_floating_point \
+            else float(torch.iinfo(dt).min)         # uint8: 0
+        for shape in ((1, 1), (1, 29), (29, 1), (37, 53)):
+            gauss = rng.normal(size=shape) * 40
+            ties = rng.integers(0, 3, size=shape).astype(np.float64)
+            for kind, img in (("gauss", gauss), ("ties", ties)):
+                check_pool(as_dtype(img, dt), f"{kind}{shape}/{dt}")
+                n_pool += 1
+            check_pool(torch.full(shape, fill, dtype=dt, device=dev),
+                       f"fill-valued{shape}/{dt}")
+            n_pool += 1
+    comp_ties = torch.from_numpy(rng.integers(
+        0, 3, size=(MAIN_SIZE, MAIN_SIZE)).astype(np.int32)).to(dev)
+    check_pool(x_main, f"astro {MAIN_SIZE}² float32")
+    check_pool(comp_ties, f"ties {MAIN_SIZE}² int32")
+    n_pool += 2
+    p_ms = cuda_ms(lambda: kmp.maxargmaxpool3x3(x_main))
+    p_plain_ms = cuda_ms(lambda: rmp.maxargmaxpool3x3(x_main))
+    x4 = x_main[None, None]
+    p_lib_ms = cuda_ms(lambda: torch.nn.functional.max_pool2d(
+        x4, 3, 1, 1, return_indices=True))
+    p_bytes = n * (4 + 4 + 4)            # read f32 image, write value + arg
+    p_bound_ms = p_bytes / HBM_BYTES_PER_S * 1e3
+    emit("maxpool", cases=n_pool, bitwise_equal=True,
+         shape=[MAIN_SIZE] * 2, dtype="float32", kernel_ms=p_ms,
+         plain_ms=p_plain_ms, library_ms_max_pool2d_indices=p_lib_ms,
+         bound_ms=p_bound_ms)
+
+    # -- 5. main path (drives the kernels; its first best-edge round is
+    #       captured for the best-edge timing below) --------------------------
     cfg = PHConfig(merge_impl="boruvka", phase_c_impl="fused",
                    filter_level="filter_std")
     engine = PHEngine(cfg)                      # device left at its default
-    ka.LIBRARY.launches = 0
-    kc.LIBRARY.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = engine.run(frame)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"ph_phase_a": ka.LIBRARY.launches,
-                "ph_phase_c": kc.LIBRARY.launches}
-    if min(launches.values()) <= 0:
+    launches = read_counts()
+    if min(launches["ph_phase_a"], launches["ph_phase_c"]) <= 0:
         raise AssertionError(f"main path missed a kernel: {launches}")
     mf, mc = res.regrow.final_max_features, res.regrow.final_max_candidates
     if res.regrow.overflow or bool(res.diagram.overflow):
@@ -209,7 +289,9 @@ def main() -> int:
     stage_kw = dict(max_features=mf, max_candidates=mc, merge_impl="boruvka",
                     phase_c_impl="fused", strip_rows=cfg.strip_rows)
 
-    def staged(use_pallas):
+    def staged(use_pallas, kw=stage_kw, want=None):
+        """Per-stage device times of one ``pixhomology`` call (CUDA events
+        between stage marks); the diagram must equal ``want``."""
         marks = []
 
         def mark(stage: str) -> None:
@@ -219,14 +301,13 @@ def main() -> int:
 
         start = torch.cuda.Event(enable_timing=True)
         start.record()
-        d = pixhomology(x_run, tv, mark=mark, use_pallas=use_pallas,
-                        **stage_kw)
+        d = pixhomology(x_run, tv, mark=mark, use_pallas=use_pallas, **kw)
         torch.cuda.synchronize()
         ms, prev = {}, start
         for stage, ev in marks:
             ms[stage] = prev.elapsed_time(ev)
             prev = ev
-        if not same_diagram(d, res.diagram):
+        if not same_diagram(d, res.diagram if want is None else want):
             raise AssertionError(f"staged run (use_pallas={use_pallas}) "
                                  f"differs from the engine run")
         return ms
@@ -273,7 +354,7 @@ def main() -> int:
          plain_stage_ms=plain_stage_ms,
          launches=launches, equals_plain=True)
 
-    # -- 4. best-edge kernel vs plain --------------------------------------
+    # -- 6. best-edge kernel vs plain --------------------------------------
     def check_best(key, ra_, rb_, nv, label):
         b_k, w_k = kc.best_edge_reduce(key, ra_, rb_, nv)
         b_r, w_r = rc.best_edge_reduce(key, ra_, rb_, nv)
@@ -325,7 +406,56 @@ def main() -> int:
          kernel_ms=e_ms, plain_ms=e_plain_ms,
          library_ms_scatter_reduce_amax=e_lib_ms, bound_ms=e_bound_ms)
 
-    # -- 6. batch ----------------------------------------------------------
+    # -- 7. paper: the paper's pooled Algorithm 1 through run() -------------
+    paper_cfg = cfg.replace(phase_a_impl="pooled", candidate_mode="paper")
+    paper = PHEngine(paper_cfg)
+    reset_counts()
+    t0 = time.perf_counter()
+    pres = paper.run(frame)
+    torch.cuda.synchronize()
+    paper_first_s = time.perf_counter() - t0
+    paper_launches = read_counts()
+    if min(paper_launches["maxpool"], paper_launches["ph_phase_c"]) <= 0:
+        raise AssertionError(f"paper path missed a kernel: {paper_launches}")
+    if pres.regrow.overflow or bool(pres.diagram.overflow):
+        raise AssertionError("paper path still overflows after regrow")
+    t0 = time.perf_counter()
+    pres2 = paper.run(frame)
+    torch.cuda.synchronize()
+    paper_steady_ms = (time.perf_counter() - t0) * 1e3
+    if not same_diagram(pres.diagram, pres2.diagram):
+        raise AssertionError("paper steady-state run differs")
+    pmf = pres.regrow.final_max_features
+    pmc = pres.regrow.final_max_candidates
+    paper_plain = PHEngine(paper_cfg.replace(
+        use_pallas=False, max_features=pmf, max_candidates=pmc))
+    reset_counts()
+    t0 = time.perf_counter()
+    pres_plain = paper_plain.run(frame)
+    torch.cuda.synchronize()
+    paper_plain_ms = (time.perf_counter() - t0) * 1e3
+    if max(read_counts().values()):
+        raise AssertionError("use_pallas=False still launched a kernel")
+    if not same_diagram(pres.diagram, pres_plain.diagram):
+        raise AssertionError("paper run != plain-version run at 4096²")
+    pooled_exact = PHEngine(cfg.replace(
+        phase_a_impl="pooled", max_features=mf, max_candidates=mc))
+    if not same_diagram(res.diagram, pooled_exact.run(frame).diagram):
+        raise AssertionError("pooled phase A with exact candidates != the "
+                             "main (fused) diagram")
+    paper_kw = dict(stage_kw, max_features=pmf, max_candidates=pmc,
+                    phase_a_impl="pooled", candidate_mode="paper")
+    paper_stage_ms = staged(None, paper_kw, pres.diagram)
+    emit("paper", shape=[MAIN_SIZE] * 2,
+         config=json.loads(paper_cfg.to_json()), count=int(pres.diagram.count),
+         n_unmerged=int(pres.diagram.n_unmerged),
+         regrow_attempts=pres.regrow.attempts, final_max_features=pmf,
+         final_max_candidates=pmc, first_call_s=paper_first_s,
+         steady_wall_ms=paper_steady_ms, plain_wall_ms=paper_plain_ms,
+         stage_ms=paper_stage_ms, launches=paper_launches, equals_plain=True,
+         pooled_exact_equals_main=True)
+
+    # -- 8. batch ----------------------------------------------------------
     frames = np.stack([astro.generate_image(i, BATCH_SIZE)
                        for i in range(1, 5)])
     batch_engine = PHEngine(cfg)
@@ -344,7 +474,125 @@ def main() -> int:
          final_max_candidates=rb_res.regrow.final_max_candidates,
          equals_single_runs=True)
 
-    # -- 7. oracle ---------------------------------------------------------
+    # -- 9. mixed_batch: a survey batch of mixed shapes, one bucket ---------
+    survey = [astro.generate_window(i, 0, 0, h, w, size=BATCH_SIZE)
+              for i, (h, w) in enumerate(MIXED_SHAPES, start=10)]
+    survey.append(survey[2].copy())             # an exact duplicate
+    twin, twin_of = len(survey) - 1, 2
+    mixed = PHEngine(cfg)
+    reset_counts()
+    t0 = time.perf_counter()
+    mres = mixed.run_batch(survey)
+    torch.cuda.synchronize()
+    mixed_ms = (time.perf_counter() - t0) * 1e3
+    mixed_launches = read_counts()
+    if min(mixed_launches["ph_phase_a"], mixed_launches["ph_phase_c"]) <= 0:
+        raise AssertionError(f"mixed batch missed a kernel: {mixed_launches}")
+    dispatch = sorted({key[1] for key in mixed._plans if key[0] == "batched"})
+    want_bucket = tuple(max(bucket_shape(im.shape)[d] for im in survey)
+                        for d in (0, 1))
+    if dispatch != [(len(survey) - 1, *want_bucket)]:
+        raise AssertionError(f"unexpected dispatch shapes {dispatch}")
+    mmf = mres.regrow.final_max_features
+    mmc = mres.regrow.final_max_candidates
+    msingle = PHEngine(cfg.replace(max_features=mmf, max_candidates=mmc))
+    mrows = diagram_to_numpy(mres.diagram)
+    for i, im in enumerate(survey):
+        one = diagram_to_numpy(msingle.run(im).diagram)
+        if not all(np.array_equal(a[i], b) for a, b in zip(mrows, one)):
+            raise AssertionError(f"mixed run_batch row {i} {im.shape} != "
+                                 f"single run")
+    if not all(np.array_equal(a[twin], a[twin_of]) for a in mrows):
+        raise AssertionError("duplicate row != its twin")
+    # Host parts of run_batch, each timed on its own: the content hash of
+    # the dedupe, the Variant-2 statistic per frame; then the same batch
+    # with its thresholds given (regrow memo settled).
+    t0 = time.perf_counter()
+    mixed._dedupe_batch(survey, None)
+    dedupe_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    survey_tv = [mixed.auto_threshold(im) for im in survey]
+    mixed_threshold_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    mres2 = mixed.run_batch(survey, survey_tv)
+    torch.cuda.synchronize()
+    mixed_given_ms = (time.perf_counter() - t0) * 1e3
+    if mres2.regrow.attempts or not same_diagram(mres.diagram,
+                                                 mres2.diagram):
+        raise AssertionError("mixed batch with given thresholds differs")
+    emit("mixed_batch", shapes=[list(im.shape) for im in survey],
+         dispatch_shape=list(dispatch[0]),
+         dispatch_mpx=int(np.prod(dispatch[0])) / 1e6,
+         counts=mrows.count.tolist(), regrow_attempts=mres.regrow.attempts,
+         final_max_features=mmf, final_max_candidates=mmc,
+         wall_ms=mixed_ms, host_dedupe_hash_ms=dedupe_ms,
+         host_threshold_ms=mixed_threshold_ms,
+         steady_wall_ms_given_thresholds=mixed_given_ms,
+         launches=mixed_launches, equals_single_runs=True,
+         duplicate_equals_twin=True)
+
+    # -- 10. distance: the mixed batch's rows compared pairwise -------------
+    reset_counts()
+    t0 = time.perf_counter()
+    sw, bn = mixed.distance_matrix(mres, n_dirs=N_DIRS)
+    torch.cuda.synchronize()
+    dist_ms = (time.perf_counter() - t0) * 1e3
+    dist_launches = read_counts()
+    if dist_launches["ph_distance"] <= 0:
+        raise AssertionError(f"distance path missed its kernel: "
+                             f"{dist_launches}")
+    if not (torch.equal(sw, sw.T) and torch.equal(bn, bn.T)
+            and not sw.diagonal().any() and not bn.diagonal().any()):
+        raise AssertionError("distance matrices not exactly symmetric with "
+                             "a zero diagonal")
+    if sw[twin, twin_of] != 0 or bn[twin, twin_of] != 0:
+        raise AssertionError("duplicate frames at a non-zero distance")
+    # The engine call's parts, each on its own (host clock, synchronized).
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    (birth, death, p_birth), stack_ms = timed(
+        lambda: mixed._stack_diagrams(mres))
+    birth, death = birth.float(), death.float()
+    (pts, dirs), proj_ms = timed(lambda: rd.diagram_projections(
+        birth, death, p_birth, n_dirs=N_DIRS))
+    pts, dirs = pts.contiguous(), dirs.contiguous()
+    prof, prof_ms = timed(lambda: rd.persistence_profiles(
+        birth, death, p_birth, merge_keys="packed").contiguous())
+    ksw, kbn = kd.distance_matrix(pts, dirs, prof)
+    rsw, rbn = rd.distance_matrix(pts, dirs, prof)
+    if not (torch.equal(ksw, sw) and torch.equal(kbn, bn)):
+        raise AssertionError("distance kernel on the prepared tables != the "
+                             "engine's matrices")
+    err["ph_distance"] = max(max_abs_diff(ksw, rsw), max_abs_diff(kbn, rbn))
+    if not torch.equal(kbn, rbn):
+        raise AssertionError("distance kernel bn != plain version")
+    sw_rel = float(((ksw.double() - rsw.double()).abs()
+                    / rsw.double().abs().clamp_min(1e-30)).max())
+    if not torch.allclose(ksw, rsw, rtol=1e-5, atol=0.0):
+        raise AssertionError(f"distance kernel sw != plain version within "
+                             f"rtol 1e-5 (max rel {sw_rel})")
+    d_ms = cuda_ms(lambda: kd.distance_matrix(pts, dirs, prof))
+    d_plain_ms = cuda_ms(lambda: rd.distance_matrix(pts, dirs, prof), reps=3)
+    b_rows, k_dirs, f_cap = pts.shape
+    d_bytes = (2 * b_rows * k_dirs * f_cap + b_rows * f_cap
+               + 2 * b_rows * b_rows) * 4
+    d_ops = b_rows * b_rows * k_dirs * 2 * 2 * f_cap
+    d_bound_ms = max(d_bytes / HBM_BYTES_PER_S, d_ops / FP32_OPS_PER_S) * 1e3
+    d_bound_by = "bytes" if d_bytes / HBM_BYTES_PER_S >= \
+        d_ops / FP32_OPS_PER_S else "operations"
+    emit("distance", rows=b_rows, n_dirs=k_dirs, capacity=f_cap,
+         engine_wall_ms=dist_ms, stack_ms=stack_ms, projections_ms=proj_ms,
+         profiles_ms=prof_ms, launches=dist_launches, kernel_ms=d_ms,
+         plain_ms=d_plain_ms, bound_ms=d_bound_ms, bound_by=d_bound_by,
+         bn_bitwise_equal=True, sw_max_rel_err=sw_rel,
+         symmetric_zero_diagonal=True,
+         sw_matrix=sw.cpu().tolist(), bn_matrix=bn.cpu().tolist())
+
+    # -- 11. oracle --------------------------------------------------------
     s = ORACLE_SIZE
     n_small = s * s
     astro_small = astro.generate_image(5, s)
@@ -387,6 +635,20 @@ def main() -> int:
          "max_abs_err": err["ph_phase_c"],
          "ms": e_ms, "plain_ms": e_plain_ms, "bound_ms": e_bound_ms,
          "bound_by": "bytes", "library_ms": e_lib_ms},
+        {"name": "maxpool3x3", "route": "cuda",
+         "source": "src/repro_torch/kernels/maxpool/csrc/maxpool.cu",
+         "replaces": "src/repro/kernels/maxpool/kernel.py:56",
+         "launches": paper_launches["maxpool"],
+         "max_abs_err": err["maxpool"],
+         "ms": p_ms, "plain_ms": p_plain_ms, "bound_ms": p_bound_ms,
+         "bound_by": "bytes", "library_ms": p_lib_ms},
+        {"name": "ph_distance", "route": "cuda",
+         "source": "src/repro_torch/kernels/ph_distance/csrc/distance.cu",
+         "replaces": "src/repro/kernels/ph_distance/kernel.py:33",
+         "launches": dist_launches["ph_distance"],
+         "max_abs_err": err["ph_distance"],
+         "ms": d_ms, "plain_ms": d_plain_ms, "bound_ms": d_bound_ms,
+         "bound_by": d_bound_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

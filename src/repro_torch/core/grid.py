@@ -13,7 +13,6 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-import torch.nn.functional as F
 
 # 8-neighborhood offsets (self excluded), fixed order: every consumer uses
 # the same order so merge processing is bit-identical across layers.
@@ -67,8 +66,14 @@ def shift2d(x: torch.Tensor, dr: int, dc: int, fill) -> torch.Tensor:
     if not (-1 <= dr <= 1 and -1 <= dc <= 1):
         raise ValueError(f"shift2d supports |dr|,|dc| <= 1, got ({dr}, {dc})")
     h, w = x.shape[-2:]
-    padded = F.pad(x, (1, 1, 1, 1), value=fill)
-    return padded[..., 1 + dr:1 + dr + h, 1 + dc:1 + dc + w]
+    # Filled by torch.full_like, not F.pad: F.pad takes its fill as a
+    # double, which rounds int64 sentinels such as iinfo(int64).max.
+    out = torch.full_like(x, fill)
+    r0, r1 = max(0, -dr), min(h, h - dr)
+    c0, c1 = max(0, -dc), min(w, w - dc)
+    if r0 < r1 and c0 < c1:
+        out[..., r0:r1, c0:c1] = x[..., r0 + dr:r1 + dr, c0 + dc:c1 + dc]
+    return out
 
 
 def higher_neighbor_basins(x: torch.Tensor, xkey: torch.Tensor,

@@ -6,16 +6,22 @@ when they merge into a component with an older (larger) birth (elder
 rule); the essential class of the global maximum dies at the global
 minimum.  The computation is the same three-stage graph:
 
-* **Phase A** (:func:`phase_a`) — steepest-ascent pointers snapped inside
-  ``strip_rows``-row strips plus the strictly-higher 8-neighbor bitmask,
-  through :mod:`repro_torch.kernels.ph_phase_a` (the CUDA kernel on the
-  card, its plain version on the CPU).
+* **Phase A** (:func:`phase_a`) — ``"fused"``: steepest-ascent pointers
+  snapped inside ``strip_rows``-row strips plus the strictly-higher
+  8-neighbor bitmask, through :mod:`repro_torch.kernels.ph_phase_a`;
+  ``"pooled"``: the paper's ``arg-maxpool2d`` pointers (line 1), through
+  :mod:`repro_torch.kernels.maxpool` (the CUDA kernels on the card, their
+  plain versions on the CPU).
 * **Phase B** (:func:`phase_b`) — label resolution by pointer doubling on
-  the compacted strip-boundary frontier.
-* **Phase C** (:func:`phase_c`) — exact death candidates from the bitmask,
-  then the sequential elder-rule sweep (``merge_impl="scan"``) or the
-  parallel Boruvka forest (``"boruvka"``; ``phase_c_impl="fused"`` runs
-  it on the compacted root instance with the
+  the compacted strip-boundary frontier (fused) or the whole image
+  (pooled).
+* **Candidates** — ``candidate_mode="exact"``: pixels whose strictly
+  higher neighbors span two basins; ``"paper"``: the paper's component
+  edges (``maxpool2d(M) != -maxpool2d(-M)``, line 6) distilled to local
+  minima and axis saddles.
+* **Phase C** (:func:`phase_c`) — the sequential elder-rule sweep
+  (``merge_impl="scan"``) or the parallel Boruvka forest (``"boruvka"``;
+  ``phase_c_impl="fused"`` runs it on the compacted root instance with the
   :mod:`repro_torch.kernels.ph_phase_c` best-edge kernel), the essential
   class, and the fixed-capacity diagram.
 
@@ -23,9 +29,6 @@ Every comparison keys on an order-isomorphic encoding of the strict
 ``(value, flat_index)`` total order: packed int64 keys (default) or dense
 int32 ranks; both give the same bits.  All capacities are static and the
 diagram carries an overflow flag the engine regrows on.
-
-Pooled phase A and ``candidate_mode="paper"`` need the maxpool kernel,
-which this package does not have yet; they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,11 +41,9 @@ from repro_torch.core import packed_keys
 from repro_torch.core.grid import (NEIGHBOR_OFFSETS, fixed_point_iterate,
                                    gather_flat, higher_neighbor_basins,
                                    neg_inf, shift2d)
-from repro_torch.core.packed_keys import key_pad, masked_top_k
+from repro_torch.core.packed_keys import key_pad, key_top, masked_top_k
+from repro_torch.kernels.maxpool import ops as pool_ops
 from repro_torch.kernels.ph_phase_a import ops as phase_a_ops
-
-_NEEDS_MAXPOOL = ("needs the maxpool kernel, which is still to be ported "
-                  "(ROADMAP.md, queue 2 kernel 3)")
 
 
 class Diagram(NamedTuple):
@@ -58,10 +59,11 @@ class Diagram(NamedTuple):
 
 
 class PhaseA(NamedTuple):
-    """Phase-A artifacts (flat): strip-snapped pointers and the bitmask."""
+    """Phase-A artifacts (flat): pointers and, from the fused stage only,
+    the higher-neighbor bitmask (``None`` from the pooled stage)."""
 
     pointers: torch.Tensor
-    hi_mask: torch.Tensor
+    hi_mask: torch.Tensor | None
 
 
 def diagram_to_numpy(d: Diagram) -> Diagram:
@@ -113,16 +115,50 @@ def total_order_keys(values_flat: torch.Tensor,
 # Phase A / phase B
 # ---------------------------------------------------------------------------
 
+def steepest_neighbors(image: torch.Tensor, *,
+                       use_pallas: bool | None = None) -> torch.Tensor:
+    """arg-maxpool2d(I): flat index of each pixel's 3x3 max (paper line 1),
+    flattened over the last two axes."""
+    _, arg = pool_ops.maxargmaxpool3x3(image, use_pallas=use_pallas)
+    return arg.reshape(*image.shape[:-2], -1)
+
+
+def keyed_steepest_pointers(values2d: torch.Tensor,
+                            keys2d: torch.Tensor) -> torch.Tensor:
+    """Steepest-ascent pointer (local flat id) under the (value, key) total
+    order; self included.  Fill cells (key -1, value -inf) never win.
+
+    The tiled path instantiates this with *global* pixel indices as keys
+    on a halo-padded tile, so the per-tile order is isomorphic to the
+    global one.
+    """
+    h, w = values2d.shape
+    flat = torch.arange(h * w, dtype=torch.int32,
+                        device=values2d.device).reshape(h, w)
+    fill_v = neg_inf(values2d.dtype)
+    best_v, best_k, best_l = values2d, keys2d, flat
+    for dr, dc in NEIGHBOR_OFFSETS:
+        v = shift2d(values2d, dr, dc, fill_v)
+        k = shift2d(keys2d, dr, dc, -1)
+        lo = shift2d(flat, dr, dc, -1)
+        better = (v > best_v) | ((v == best_v) & (k > best_k))
+        best_v = torch.where(better, v, best_v)
+        best_k = torch.where(better, k, best_k)
+        best_l = torch.where(better, lo, best_l)
+    return best_l
+
+
 def phase_a(image: torch.Tensor, *, phase_a_impl: str = "fused",
             strip_rows: int = 8, use_pallas: bool | None = None) -> PhaseA:
-    """Stage A: strip-snapped pointers + higher-neighbor bitmask
-    ((H, W) image or (B, H, W) batch)."""
+    """Stage A ((H, W) image or (B, H, W) batch): ``"fused"`` gives
+    strip-snapped pointers + the higher-neighbor bitmask; ``"pooled"`` the
+    raw arg-maxpool pointers (paper line 1) and no bitmask."""
     if phase_a_impl == "fused":
         ptr, hi_mask = phase_a_ops.fused_phase_a(
             image, strip_rows=strip_rows, use_pallas=use_pallas)
         return PhaseA(ptr, hi_mask)
     if phase_a_impl == "pooled":
-        raise NotImplementedError(f"phase_a_impl='pooled' {_NEEDS_MAXPOOL}")
+        return PhaseA(steepest_neighbors(image, use_pallas=use_pallas), None)
     raise ValueError(f"unknown phase_a_impl {phase_a_impl!r}")
 
 
@@ -207,6 +243,87 @@ def exact_candidates_masked(hi_mask2d: torch.Tensor,
         hi_max = torch.where(higher, torch.maximum(hi_max, nlbl), hi_max)
         hi_min = torch.where(higher, torch.minimum(hi_min, nlbl), hi_min)
     return (hi_max >= 0) & (hi_max != hi_min)
+
+
+def paper_candidates(key2d: torch.Tensor, comp2d: torch.Tensor, *,
+                     use_pallas: bool | None = None) -> torch.Tensor:
+    """Paper-literal steps 3-4: component edges, then min/saddle
+    distillation.
+
+    comp2d: re-indexed component image (incremental ids, paper step 2).
+    Edge:   maxpool2d(M) != -maxpool2d(-M)           (paper line 6)
+    Keep:   local minima or axis saddles of I        (paper "distillation")
+    """
+    edge = (pool_ops.maxpool3x3(comp2d, use_pallas=use_pallas)
+            != pool_ops.minpool3x3(comp2d, use_pallas=use_pallas))
+
+    # Directional fills: for "min along" tests a missing neighbor counts as
+    # higher (dtype max), for "max along" as lower (dtype min); valid keys
+    # never reach either sentinel.
+    hi, lo = key_top(key2d.dtype), key_pad(key2d.dtype)
+
+    def nb(dr, dc, fill):
+        return shift2d(key2d, dr, dc, fill)
+
+    local_min = torch.ones(key2d.shape, dtype=torch.bool,
+                           device=key2d.device)
+    for dr, dc in NEIGHBOR_OFFSETS:
+        local_min &= nb(dr, dc, hi) > key2d
+
+    axes = [(0, 1), (1, 0), (1, 1), (1, -1)]
+    min_along = [(nb(dr, dc, hi) > key2d) & (nb(-dr, -dc, hi) > key2d)
+                 for dr, dc in axes]
+    max_along = [(nb(dr, dc, lo) < key2d) & (nb(-dr, -dc, lo) < key2d)
+                 for dr, dc in axes]
+    saddle = torch.zeros(key2d.shape, dtype=torch.bool, device=key2d.device)
+    for a in range(len(axes)):
+        for b in range(len(axes)):
+            if a != b:
+                saddle |= min_along[a] & max_along[b]
+    return edge & (local_min | saddle)
+
+
+def reindex_components(key_flat: torch.Tensor, labels_flat: torch.Tensor,
+                       is_root: torch.Tensor) -> torch.Tensor:
+    """Paper step 2 re-indexing: component ids 0..C-1 ascending by birth.
+
+    Returns the int32 component id of every pixel; id C-1 is the component
+    of the global maximum.
+    """
+    n = key_flat.shape[0]
+    dev = key_flat.device
+    c = is_root.sum(dtype=torch.int32)
+    root_key = torch.where(is_root, key_flat,
+                           torch.full_like(key_flat, key_pad(key_flat.dtype)))
+    order = torch.argsort(root_key, stable=True)   # non-roots first
+    slot = torch.empty(n, dtype=torch.int32, device=dev)
+    slot[order] = torch.arange(n, dtype=torch.int32, device=dev)
+    comp_of_root = slot - (n - c)                   # roots -> 0..C-1
+    return comp_of_root[labels_flat.long()]
+
+
+def candidates(key_flat: torch.Tensor, labels_flat: torch.Tensor,
+               pa: PhaseA, shape: tuple[int, int], candidate_mode: str, *,
+               use_pallas: bool | None = None) -> torch.Tensor:
+    """Steps 3-4: the flat death-candidate mask under ``candidate_mode``."""
+    h, w = shape
+    if candidate_mode == "exact":
+        if pa.hi_mask is not None:
+            cand = exact_candidates_masked(pa.hi_mask.reshape(h, w),
+                                           labels_flat.reshape(h, w))
+        else:
+            cand = exact_candidates(key_flat.reshape(h, w),
+                                    labels_flat.reshape(h, w))
+    elif candidate_mode == "paper":
+        is_root = labels_flat == torch.arange(h * w, dtype=torch.int32,
+                                              device=labels_flat.device)
+        comp2d = reindex_components(key_flat, labels_flat,
+                                    is_root).reshape(h, w)
+        cand = paper_candidates(key_flat.reshape(h, w), comp2d,
+                                use_pallas=use_pallas)
+    else:
+        raise ValueError(f"unknown candidate_mode {candidate_mode!r}")
+    return cand.reshape(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -367,13 +484,6 @@ def phase_c(image_flat: torch.Tensor, key_flat: torch.Tensor,
 # Full algorithm: phase_a -> phase_b -> candidates -> phase_c
 # ---------------------------------------------------------------------------
 
-def _check_modes(candidate_mode: str) -> None:
-    if candidate_mode == "paper":
-        raise NotImplementedError(f"candidate_mode='paper' {_NEEDS_MAXPOOL}")
-    if candidate_mode != "exact":
-        raise ValueError(f"unknown candidate_mode {candidate_mode!r}")
-
-
 def _pixhomology(image: torch.Tensor, truncate_value=None, *,
                  max_features: int = 256, max_candidates: int = 4096,
                  candidate_mode: str = "exact",
@@ -393,7 +503,6 @@ def _pixhomology(image: torch.Tensor, truncate_value=None, *,
     """
     if image.dim() != 2:
         raise ValueError(f"expected 2D image, got shape {tuple(image.shape)}")
-    _check_modes(candidate_mode)
     image = packed_keys.filtration_view(image, filtration)
     if truncate_value is not None and filtration == "sublevel":
         truncate_value = -truncate_value
@@ -412,8 +521,8 @@ def _pixhomology(image: torch.Tensor, truncate_value=None, *,
                      strip_rows=strip_rows)
     if mark:
         mark("phase_b")
-    cand = exact_candidates_masked(pa.hi_mask.reshape(h, w),
-                                   labels.reshape(h, w)).reshape(-1)
+    cand = candidates(key, labels, pa, (h, w), candidate_mode,
+                      use_pallas=use_pallas)
     if mark:
         mark("candidates")
     d = phase_c(vals, key, labels, cand, (h, w), truncate_value,
@@ -467,7 +576,6 @@ def batched_pixhomology(images: torch.Tensor, truncate_values=None, *,
                          f"{tuple(images.shape)}")
     packed_keys.check_finite(images, allow_inf=True)
     merge_keys = packed_keys.resolve_merge_keys(merge_keys, images.dtype)
-    _check_modes(kwargs.get("candidate_mode", "exact"))
     pa = phase_a(packed_keys.filtration_view(images, filtration),
                  phase_a_impl=phase_a_impl, strip_rows=strip_rows,
                  use_pallas=use_pallas)
@@ -475,7 +583,8 @@ def batched_pixhomology(images: torch.Tensor, truncate_values=None, *,
         images[i], None if truncate_values is None else truncate_values[i],
         merge_keys=merge_keys, phase_a_impl=phase_a_impl,
         strip_rows=strip_rows, use_pallas=use_pallas, filtration=filtration,
-        phase_a_out=PhaseA(pa.pointers[i], pa.hi_mask[i]), **kwargs)
+        phase_a_out=PhaseA(pa.pointers[i], None if pa.hi_mask is None
+                           else pa.hi_mask[i]), **kwargs)
         for i in range(images.shape[0])]
     return stack_diagrams(diags)
 
@@ -483,20 +592,26 @@ def batched_pixhomology(images: torch.Tensor, truncate_values=None, *,
 def num_candidates(image: torch.Tensor, candidate_mode: str = "exact",
                    truncate_value=None, *, use_pallas: bool | None = None,
                    phase_a_impl: str = "fused", strip_rows: int = 8,
+                   merge_keys: str = "packed",
                    filtration: str = "superlevel") -> int:
-    """Count death-point candidates (to size ``max_candidates``)."""
-    _check_modes(candidate_mode)
+    """Count death-point candidates (to size ``max_candidates``).  The
+    total-order keys are built only on the branches that read them (the
+    fused exact test needs just the phase-A bitmask)."""
     h, w = image.shape
     packed_keys.check_finite(image, allow_inf=True)
     image = packed_keys.filtration_view(image, filtration)
     if truncate_value is not None and filtration == "sublevel":
         truncate_value = -truncate_value
+    merge_keys = packed_keys.resolve_merge_keys(merge_keys, image.dtype)
     pa = phase_a(image, phase_a_impl=phase_a_impl, strip_rows=strip_rows,
                  use_pallas=use_pallas)
     labels = phase_b(pa, (h, w), phase_a_impl=phase_a_impl,
                      strip_rows=strip_rows)
-    cand = exact_candidates_masked(pa.hi_mask.reshape(h, w),
-                                   labels.reshape(h, w))
+    key = None
+    if candidate_mode != "exact" or pa.hi_mask is None:
+        key = total_order_keys(image.reshape(-1), merge_keys)
+    cand = candidates(key, labels, pa, (h, w), candidate_mode,
+                      use_pallas=use_pallas).reshape(h, w)
     if truncate_value is not None:
         cand = cand & (image >= truncate_value)
     return int(cand.sum())

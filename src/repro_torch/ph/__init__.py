@@ -5,7 +5,8 @@
     engine = PHEngine(PHConfig(merge_impl="boruvka",
                                filter_level=FilterLevel.STD))
     result = engine.run(image)          # on the CUDA device, auto-regrow
-    batch = engine.run_batch(images)    # uniform (B, H, W)
+    batch = engine.run_batch(images)    # (B, H, W) or 2D images of any shapes
+    sw, bottleneck = engine.distance_matrix(batch)
 
 ``PHEngine(config, device="cpu")`` runs the plain PyTorch versions on the
 host instead.

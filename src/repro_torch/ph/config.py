@@ -240,8 +240,8 @@ class PHConfig:
     merge_keys: str = "packed"             # "packed" | "rank"
     # phase_a_impl "fused": the repro_torch.kernels.ph_phase_a kernel (CUDA
     # per use_pallas, its plain version on CPU tensors) + compacted-frontier
-    # phase B.  "pooled": the unfused baseline, which needs the maxpool
-    # kernel (not ported yet).
+    # phase B.  "pooled": the unfused baseline — arg-maxpool pointers
+    # through the repro_torch.kernels.maxpool kernel + dense phase B.
     phase_a_impl: str = "fused"            # "fused" | "pooled"
     # Strip height of the fused phase-A kernel (= its snap block rows and
     # the frontier compaction factor: the frontier is ~2/strip_rows of n).

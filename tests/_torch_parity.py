@@ -1,7 +1,9 @@
 """Shared helpers for the port's parity tests (JAX reference vs PyTorch port).
 
-Inputs are made with numpy from a seed and handed to both packages; every
-comparison is bitwise (outputs are integers or gathered pixel values).
+Inputs are made with numpy from a seed and handed to both packages.
+Diagrams compare bitwise (their fields are integers or gathered pixel
+values); distance tables compare bitwise on the bottleneck bound and at
+rtol 1e-5 on the sliced-Wasserstein sum, which reassociates.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -66,3 +68,14 @@ def assert_same_diagram(want, got, what: str = "") -> None:
     """Field-by-field bitwise equality of two Diagrams (either package)."""
     for name, a, b in zip(got._fields, want, got):
         assert_same(a, b, f"{what} field {name}")
+
+
+def assert_same_distances(want, got, what: str = "") -> None:
+    """``(sw, bn)`` distance tables from either package: ``bn`` bitwise,
+    ``sw`` at rtol 1e-5 (the reference's tolerance where a sum
+    reassociates)."""
+    sw_w, bn_w = (host(a) for a in want)
+    sw_g, bn_g = (host(a) for a in got)
+    assert sw_w.shape == sw_g.shape and bn_w.shape == bn_g.shape, what
+    np.testing.assert_array_equal(bn_w, bn_g, err_msg=f"{what} bn")
+    np.testing.assert_allclose(sw_g, sw_w, rtol=1e-5, err_msg=f"{what} sw")

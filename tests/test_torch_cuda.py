@@ -14,6 +14,10 @@ from repro_torch.core import diagram_to_numpy
 from repro_torch.data import astro
 from repro_torch.kernels.ph_phase_a import kernel as ka
 from repro_torch.kernels.ph_phase_a import ref as ra
+from repro_torch.kernels.maxpool import kernel as kmp
+from repro_torch.kernels.maxpool import ref as rmp
+from repro_torch.kernels.ph_distance import kernel as kd
+from repro_torch.kernels.ph_distance import ref as rd
 from repro_torch.kernels.ph_phase_c import kernel as kc
 from repro_torch.kernels.ph_phase_c import ref as rc
 from repro_torch.ph import PHConfig, PHEngine
@@ -88,3 +92,74 @@ def test_engine_on_card_matches_cpu(merge_impl, phase_c_impl):
     for a, b in zip(diagram_to_numpy(cpu.diagram),
                     diagram_to_numpy(gpu.diagram)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_maxpool_kernel_matches_plain_version(dtype):
+    _need_cuda()
+    cases = [_image(dtype, shape, sum(shape), levels)
+             for shape in ((1, 1), (1, 29), (29, 1), (37, 53), (3, 20, 33))
+             for levels in (None, 3)]
+    fill = 0 if dtype == torch.uint8 else (
+        torch.iinfo(dtype).min if not dtype.is_floating_point else -1.0)
+    cases.append(torch.full((6, 7), fill, dtype=dtype, device="cuda"))
+    for x in cases:
+        kv, ka = kmp.maxargmaxpool3x3(x)
+        rv, ra = rmp.maxargmaxpool3x3(x)
+        assert torch.equal(kv, rv) and torch.equal(ka, ra), x.shape
+        assert torch.equal(kmp.maxpool3x3(x), rmp.maxpool3x3(x))
+        assert torch.equal(kmp.minpool3x3(x), rmp.minpool3x3(x))
+
+
+@pytest.mark.cuda
+def test_distance_kernel_matches_plain_version():
+    _need_cuda()
+    rng = np.random.default_rng(3)
+    for b, k, f in ((1, 1, 1), (3, 2, 5), (4, 16, 300), (5, 16, 5000)):
+        pts = torch.from_numpy(rng.normal(size=(b, k, f)).astype(
+            np.float32)).cuda()
+        diag = torch.from_numpy(rng.normal(size=(b, k, f)).astype(
+            np.float32)).cuda()
+        prof = torch.sort(torch.from_numpy(np.abs(rng.normal(
+            size=(b, f))).astype(np.float32)).cuda(), descending=True).values
+        if b > 1:                          # a twin row: an exact zero
+            pts[-1], diag[-1], prof[-1] = pts[0], diag[0], prof[0]
+        ksw, kbn = kd.distance_matrix(pts, diag, prof)
+        rsw, rbn = rd.distance_matrix(pts, diag, prof)
+        assert torch.equal(kbn, rbn), (b, k, f)
+        torch.testing.assert_close(ksw, rsw, rtol=1e-5, atol=0)
+        assert torch.equal(ksw, ksw.T) and torch.equal(kbn, kbn.T)
+        assert (ksw.diagonal() == 0).all() and (kbn.diagonal() == 0).all()
+        if b > 1:
+            assert ksw[0, b - 1] == 0
+
+
+@pytest.mark.cuda
+def test_engine_paths_launch_the_new_kernels():
+    _need_cuda()
+    frames = [astro.generate_window(i, 0, 0, h, w, size=256)
+              for i, (h, w) in enumerate(((256, 256), (256, 192),
+                                          (200, 230)))]
+    cfg = PHConfig(phase_a_impl="pooled", candidate_mode="paper",
+                   merge_impl="boruvka", filter_level="filter_std")
+    kmp.LIBRARY.launches = kd.LIBRARY.launches = 0
+    gpu = PHEngine(cfg).run(frames[0])
+    assert kmp.LIBRARY.launches > 0
+    cpu = PHEngine(cfg, device="cpu").run(frames[0])
+    for a, b in zip(diagram_to_numpy(cpu.diagram),
+                    diagram_to_numpy(gpu.diagram)):
+        np.testing.assert_array_equal(a, b)
+    eng = PHEngine(cfg.replace(candidate_mode="exact"))
+    batch = eng.run_batch(frames + [frames[1]])
+    single = PHEngine(cfg.replace(
+        candidate_mode="exact",
+        max_features=batch.regrow.final_max_features,
+        max_candidates=batch.regrow.final_max_candidates))
+    for i, frame in enumerate(frames):
+        one = diagram_to_numpy(single.run(frame).diagram)
+        for a, b in zip(diagram_to_numpy(batch.diagram), one):
+            np.testing.assert_array_equal(a[i], b)
+    sw, bn = eng.distance_matrix(batch)
+    assert kd.LIBRARY.launches == 1 and sw.is_cuda
+    assert sw[1, 3] == 0 and bn[1, 3] == 0

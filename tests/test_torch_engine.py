@@ -196,9 +196,16 @@ def test_inputs_dtype_policy_and_errors():
         eng.run(np.array([[1.0, np.inf]], np.float32))
     with pytest.raises(TypeError):
         eng.run(np.zeros((3, 3), np.complex64))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        eng.run_batch([np.zeros((3, 3), np.float32),
-                       np.zeros((4, 3), np.float32)])
+    mixed = [_bumpy(4, (3, 3)), _bumpy(5, (4, 3))]
+    res = eng.run_batch(mixed)
+    assert res.diagram.birth.shape == (2, 16)
+    for i, im in enumerate(mixed):
+        one = eng.run(im).diagram
+        c = int(one.count)
+        for name, a, b in zip(one._fields, res.diagram, one):
+            want = b[:c] if b.dim() else b
+            got = a[i][:c] if a.dim() > 1 else a[i]
+            assert torch.equal(got, want), (i, name)
 
 
 def test_int_image_fractional_threshold_not_truncated():
@@ -227,7 +234,9 @@ def test_port_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.ph, repro_torch.core, "
             "repro_torch.data.astro; "
             "import repro_torch.kernels.ph_phase_a, "
-            "repro_torch.kernels.ph_phase_c; "
+            "repro_torch.kernels.ph_phase_c, repro_torch.kernels.maxpool, "
+            "repro_torch.kernels.ph_distance, "
+            "repro_torch.pipeline.padding, repro_torch.pipeline.scheduler; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "or m == 'repro'); "

@@ -147,10 +147,10 @@ def test_num_candidates_and_unported_modes():
     assert num_candidates(torch.from_numpy(img), truncate_value=10.0) == int(
         jnum(jnp.asarray(img), truncate_value=10.0))
     x = torch.from_numpy(img)
-    with pytest.raises(NotImplementedError, match="maxpool"):
-        pixhomology(x, phase_a_impl="pooled")
-    with pytest.raises(NotImplementedError, match="maxpool"):
-        pixhomology(x, candidate_mode="paper")
+    for kw in (dict(phase_a_impl="pooled"), dict(candidate_mode="paper")):
+        assert_same_diagram(_reference(img, "float32", **kw),
+                            _port(img, "float32", "boruvka", "fused", **kw),
+                            f"formerly unported {kw}")
     with pytest.raises(ValueError, match="non-finite"):
         pixhomology(torch.tensor([[1.0, float("nan")]]))
 
