@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of PixHomology on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port (PixHomology and the LM) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout; one CUDA card
 
 Phases, each printing one JSON line (any failure raises, exit code != 0):
 
 1. device  — card name and power limit (nvidia-smi), torch and CUDA versions;
-2. build   — the four CUDA kernels built from
+2. build   — the five CUDA kernels built from
              ``src/repro_torch/kernels/*/csrc`` with one ``nvcc`` per source,
              started together;
 3. phase_a — the phase-A kernel against its plain version, bitwise, over the
@@ -42,7 +42,27 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
              exact symmetry and zero diagonal; timed against its bound;
 11. oracle — at 256² (an astro frame, random uint8, random bfloat16) the port
              on the card equals the numpy union-find oracle for the scan,
-             Boruvka-xla and Boruvka-fused merges.
+             Boruvka-xla and Boruvka-fused merges;
+12. flash_attention — the flash attention kernel against its plain version
+             (``FLASH_CASES``: GQA, MQA, MHA, windows, non-causal, ragged
+             Sq != Skv, rows that see no key, hd 64/128/256) in float32
+             and bfloat16 at ``FLASH_TOL``, then at the main path's shapes
+             (``FLASH_MAIN_SHAPES``, strided views as the model passes
+             them); timed at the LM prefill's shape beside its bound and
+             ``scaled_dot_product_attention``;
+13. lm_serve — ``serve`` of mistral_nemo_12b at full width and depth (random
+             weights drawn on the card from seed 0): 4 prompts of 1024
+             tokens, 32 greedy tokens; one flash launch per layer; the
+             last layer's flash call of a prefill against the plain
+             version at ``FLASH_TOL``; the prefill's logits against a run
+             through the plain attention, and teacher-forced
+             ``decode_step`` logits against one full-sequence forward, at
+             ``LOGIT_ATOL``/``LOGIT_RTOL``, which a control (one KV tile
+             hidden) must fail; one prefill and one decode step under
+             ``torch.profiler`` (device busy ms by kind, idle share);
+14. lm_forward — ``Model.loss_fn`` forward at 2 x 2048 tokens: 40 flash
+             launches, the loss equal to the plain-attention run's within
+             ``LOSS_ATOL``, which the hidden-tile control must miss.
 
 Then it prints the kernel table as one JSON line, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -51,6 +71,7 @@ checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -69,10 +90,398 @@ ORACLE_SIZE = 256
 MIXED_SHAPES = ((2048, 2048), (2048, 1536), (1536, 1536), (1024, 2048),
                 (1000, 1800))
 N_DIRS = 16
+BF16_OPS_PER_S = 989e12          # H100 SXM bfloat16 tensor cores, dense
+# flash_attention cases (B, H, KV, Sq, Skv, hd, causal, window): the six of
+# tests/test_kernels_flash_attention.py, then the LM's GQA 32/8 at hd 128
+# with a ragged length, hd 256, a window over a ragged length, a ragged
+# Sq != Skv, and rows that see no key.
+FLASH_CASES = ((1, 1, 1, 128, 128, 64, True, None),
+               (2, 4, 2, 128, 128, 64, True, None),
+               (1, 8, 1, 256, 256, 128, True, None),
+               (2, 4, 4, 128, 128, 128, False, None),
+               (1, 2, 2, 256, 256, 64, True, 128),
+               (1, 4, 2, 128, 256, 64, False, None),
+               (2, 32, 8, 200, 200, 128, True, None),
+               (2, 4, 4, 130, 130, 256, False, None),
+               (1, 8, 2, 300, 300, 256, True, 100),
+               (1, 4, 2, 70, 150, 128, False, None),
+               (1, 2, 2, 8, 4, 64, True, 2))
+# The working type's tolerance (atol = rtol), as the reference's kernel
+# test states it; float32 compares without TF32.
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# The main path's own shapes (B, H, KV, S, hd), causal bfloat16, held to the
+# plain version element by element: lm_serve's prefill (the timed shape)
+# and lm_forward's.  q, k, v are (B, H, S, hd) views of (B, S, H, hd)
+# tensors, as the model passes them.
+FLASH_SHAPE = (4, 32, 8, 1024, 128)
+FLASH_MAIN_SHAPES = (FLASH_SHAPE, (2, 32, 8, 2048, 128))
+LM_ARCH = "mistral_nemo_12b"
+LM_SERVE = dict(batch=4, prompt_len=1024, gen_len=32, max_len=2048)
+LM_FORWARD = dict(batch=2, seq=2048)
+TEACHER_STEPS = 8
+# bfloat16 logits of the full-width model, two attention routes on the same
+# weights: |a - b| <= LOGIT_ATOL + LOGIT_RTOL * |b|.  The routes round
+# attention's output at other points; 40 bfloat16 layers carry that on.
+# Each limit lies between the kernel's reading and that of a control: the
+# plain version with one KV tile (CONTROL_KEYS) hidden from every query,
+# which must fail it (PERF.md gives both readings).
+LOGIT_ATOL, LOGIT_RTOL = 0.25, 0.05
+LOSS_ATOL = 5e-4                 # mean cross-entropy over 4096 tokens
+CONTROL_KEYS = slice(320, 384)   # the sixth 64-key tile
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def cuda_ms(fn, reps: int = 10) -> float:
+    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def max_abs_diff(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() \
+        else 0.0
+
+
+def phase_flash_attention(dev, rng, err) -> dict:
+    """The flash kernel against its plain version on every case, in both
+    types; timed at the LM prefill's shape beside its bound and SDPA."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as kfa
+    from repro_torch.kernels.flash_attention import ref as rfa
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    errs = {}
+    for name, dt in dtypes.items():
+        tol, errs[name] = FLASH_TOL[name], 0.0
+        for case in FLASH_CASES:
+            b, h, kv, sq, skv, hd, causal, window = case
+            q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(
+                "float32")).to(dt).to(dev) for shape in
+                ((b, h, sq, hd), (b, kv, skv, hd), (b, kv, skv, hd)))
+            got = kfa.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=window)
+            want = rfa.attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            errs[name] = max(errs[name], max_abs_diff(got, want))
+            if got.shape != want.shape or not torch.allclose(
+                    got.float(), want.float(), atol=tol, rtol=tol):
+                raise AssertionError(
+                    f"flash kernel != plain ({name}, {case}): max |diff| "
+                    f"{max_abs_diff(got, want)} over tolerance {tol}")
+
+    def views(b, h, kv, s, hd):
+        return (torch.randn(b, s, n, hd, device=dev,
+                            dtype=torch.bfloat16).transpose(1, 2)
+                for n in (h, kv, kv))
+
+    tol, main_errs = FLASH_TOL["bfloat16"], []
+    for shape in FLASH_MAIN_SHAPES:
+        q, k, v = views(*shape)
+        got = kfa.flash_attention_fwd(q, k, v, causal=True)
+        want = rfa.attention(q, k, v, causal=True)
+        main_errs.append(max_abs_diff(got, want))
+        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+            raise AssertionError(f"flash kernel != plain at the main path's "
+                                 f"shape {shape}: max |diff| {main_errs[-1]} "
+                                 f"over tolerance {tol}")
+        del got, want
+    errs["bfloat16"] = max(errs["bfloat16"], *main_errs)
+    err["flash_attention"] = max(errs.values())
+
+    b, h, kv, s, hd = FLASH_SHAPE
+    q, k, v = views(*FLASH_SHAPE)
+    ms = cuda_ms(lambda: kfa.flash_attention_fwd(q, k, v, causal=True))
+    plain_ms = cuda_ms(lambda: rfa.attention(q, k, v, causal=True), reps=3)
+    k_rep = k.repeat_interleave(h // kv, dim=1)     # SDPA wants H heads
+    v_rep = v.repeat_interleave(h // kv, dim=1)
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k_rep, v_rep, is_causal=True))
+    # Operations the causal mask leaves (two products over the visible
+    # (q, k) pairs), bytes of q, k, v read once and o written once.
+    pairs = s * (s + 1) // 2
+    ops = 4 * b * h * hd * pairs
+    nbytes = (2 * b * h * s * hd + 2 * b * kv * s * hd) * 2
+    bound_ms = max(ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    bound_by = "operations" if ops / BF16_OPS_PER_S >= \
+        nbytes / HBM_BYTES_PER_S else "bytes"
+    emit("flash_attention", cases=len(FLASH_CASES) * len(dtypes),
+         tolerance=FLASH_TOL, max_abs_err=errs,
+         main_shapes=[list(t) for t in FLASH_MAIN_SHAPES],
+         main_shape_max_abs_err=main_errs, timed_shape=list(
+             FLASH_SHAPE), timed_dtype="bfloat16", causal=True,
+         kernel_ms=ms, plain_ms=plain_ms, library_ms_sdpa=lib_ms,
+         flop=ops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def device_profile(fn) -> dict:
+    """One run of ``fn`` under ``torch.profiler``: its host wall ms (with
+    the profiler's own cost), the device time of its kernels and copies
+    summed (one stream, so they do not overlap), the idle share that
+    leaves, device ms by kind and the five longest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    launches = 0
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            launches += 1
+            by_name[event.name] = by_name.get(event.name, 0.0) \
+                + event.time_range.elapsed_us() / 1e3
+    if not by_name:                     # the profiler saw no device work
+        return {"wall_ms": wall_ms, "device_busy_ms": None}
+    # "copy": dtype casts and copies (the float32 widening of the head and
+    # of the KV cache among them).
+    kinds = {"flash_attention": 0.0, "gemm": 0.0, "copy": 0.0, "other": 0.0}
+    for name, ms in by_name.items():
+        low = name.lower()
+        if "flash_fwd" in low:
+            kinds["flash_attention"] += ms
+        elif any(w in low for w in ("gemm", "xmma", "nvjet", "cutlass")):
+            kinds["gemm"] += ms
+        elif "copy" in low:
+            kinds["copy"] += ms
+        else:
+            kinds["other"] += ms
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms, "device_events": launches,
+            "device_ms_by_kind": kinds,
+            "top_kernels": [[name[:80], ms] for name, ms in top]}
+
+
+def hidden_tile_attention(q, k, v, *, causal=True, window=None):
+    """The plain version with keys ``CONTROL_KEYS`` hidden from every
+    query: a deliberately wrong attention (a kernel that loses one KV
+    tile), run as the LM phases' control."""
+    import torch
+    from repro_torch.kernels.flash_attention import ref as rfa
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    q5 = q.reshape(b, kvh, h // kvh, sq, hd)
+    s = torch.einsum("bngqd,bnkd->bngqk", q5.float(), k.float()) * hd ** -0.5
+    visible = rfa.mask(sq, skv, causal=causal, window=window, device=q.device)
+    visible[:, CONTROL_KEYS] = False
+    p = torch.softmax(s.masked_fill(~visible, float("-inf")), dim=-1)
+    out = torch.einsum("bngqk,bnkd->bngqd", p.to(v.dtype).float(), v.float())
+    return out.reshape(b, h, sq, hd).to(q.dtype)
+
+
+class plain_attention_replaced:
+    """Within the block, the model's plain attention route
+    (``plain=True``) runs ``fn`` instead of ``ref.attention``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ref as rfa
+        self.saved, rfa.attention = rfa.attention, self.fn
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.flash_attention import ref as rfa
+        rfa.attention = self.saved
+
+
+def logit_reading(got, want) -> dict:
+    """max |got - want| and its largest ratio to the logit tolerance
+    (``torch.allclose`` passes exactly when the ratio is at most 1)."""
+    import torch
+    if not bool(torch.isfinite(got).all()) or got.shape != want.shape:
+        raise AssertionError(f"non-finite logits or shape "
+                             f"{tuple(got.shape)} != {tuple(want.shape)}")
+    diff = (got.double() - want.double()).abs()
+    ratio = diff / (LOGIT_ATOL + LOGIT_RTOL * want.double().abs())
+    return {"max_abs": float(diff.max()), "tol_ratio": float(ratio.max())}
+
+
+def hold(label: str, sound: float, control: float) -> None:
+    """A reading (ratio to its tolerance) of the kernel's run passes, the
+    hidden-tile control's fails: the limit can tell a lost tile apart."""
+    if not sound <= 1.0:
+        raise AssertionError(f"{label}: {sound:.4g} of its tolerance")
+    if not control > 1.0:
+        raise AssertionError(f"{label}: the hidden-tile control reads only "
+                             f"{control:.4g} of the tolerance, which could "
+                             f"not tell a lost KV tile apart")
+
+
+def phase_lm_serve(dev, reset_counts, read_counts) -> dict:
+    """``serve`` of the full-width LM, then its logits held to a run
+    through the plain attention and to teacher-forced decoding."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import kernel as kfa
+    from repro_torch.kernels.flash_attention import ref as rfa
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = Model(cfg)                          # device left at its default
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in params.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    gen, stats = serve_lm.serve(LM_ARCH, smoke=False, params=params,
+                                verbose=False, **LM_SERVE)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(launches, 0) | {"flash_attention": cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"serve launched {launches}, expected {want} "
+                             f"(one flash launch per layer of the prefill)")
+    if gen.shape != (LM_SERVE["batch"], LM_SERVE["gen_len"]) or \
+            gen.min() < 0 or gen.max() >= cfg.vocab_size:
+        raise AssertionError(f"serve tokens out of range: {gen.shape}")
+
+    b, p = LM_SERVE["batch"], LM_SERVE["prompt_len"]
+    prompts = torch.from_numpy(serve_lm.make_prompts(
+        cfg.vocab_size, b, p, 0)).to(dev).long()
+    batch = {"tokens": prompts}
+    # The same prefill again, keeping the last layer's q, k, v as the
+    # model hands them to the kernel, to hold that call element by element.
+    launch, captured = kfa.flash_attention_fwd, {}
+
+    def capture(q, k, v, **kw):
+        captured.update(q=q, k=k, v=v, kw=kw)
+        return launch(q, k, v, **kw)
+
+    kfa.flash_attention_fwd = capture
+    try:
+        logits, caches = model.prefill(params, batch,
+                                       max_len=LM_SERVE["max_len"])
+    finally:
+        kfa.flash_attention_fwd = launch
+    q, k, v, kw = (captured[n] for n in ("q", "k", "v", "kw"))
+    got, want = launch(q, k, v, **kw), rfa.attention(q, k, v, **kw)
+    layer_err, tol = max_abs_diff(got, want), FLASH_TOL["bfloat16"]
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        raise AssertionError(f"flash kernel != plain on the prefill's last "
+                             f"layer: max |diff| {layer_err} over {tol}")
+    layer_call = {"q": list(q.shape), "q_strides": list(q.stride()),
+                  "k": list(k.shape), **kw, "max_abs_err": layer_err}
+    del q, k, v, got, want, captured
+
+    plain_logits, _ = Model(cfg, plain=True).prefill(
+        params, batch, max_len=LM_SERVE["max_len"])
+    with plain_attention_replaced(hidden_tile_attention):
+        control_logits, _ = Model(cfg, plain=True).prefill(
+            params, batch, max_len=LM_SERVE["max_len"])
+    prefill_read = logit_reading(logits, plain_logits)
+    prefill_control = logit_reading(control_logits, plain_logits)
+    hold("prefill kernel vs plain", prefill_read["tol_ratio"],
+         prefill_control["tol_ratio"])
+    first = torch.argmax(logits[:, -1], -1).cpu().numpy()
+    if not (first == gen[:, 0]).all():
+        raise AssertionError("prefill's greedy token != serve's first token")
+
+    # Teacher forcing: decode serve's own tokens, compare with one
+    # full-sequence forward (flash over a ragged 1032-token sequence).
+    forced = torch.from_numpy(gen[:, :TEACHER_STEPS]).to(dev).long()
+    steps = [logits[:, 0]]
+    for j in range(TEACHER_STEPS):
+        lg, caches = model.decode_step(params, forced[:, j:j + 1], caches)
+        steps.append(lg[:, 0])
+    steps = torch.stack(steps, 1)
+
+    def full_forward(plain: bool):
+        with torch.no_grad():
+            h, _ = transformer.backbone(params, transformer.embed_tokens(
+                params, torch.cat([prompts, forced], dim=1)), plain=plain)
+            return transformer.logits_from_hidden(params, h[:, p - 1:])
+
+    decode_read = logit_reading(steps, full_forward(False))
+    with plain_attention_replaced(hidden_tile_attention):
+        decode_control = logit_reading(steps, full_forward(True))
+    hold("teacher-forced decode vs full sequence", decode_read["tol_ratio"],
+         decode_control["tol_ratio"])
+    prefill_prof = device_profile(lambda: model.prefill(
+        params, batch, max_len=LM_SERVE["max_len"]))
+    decode_prof = device_profile(lambda: model.decode_step(
+        params, forced[:, :1], caches))
+    emit("lm_serve", arch=LM_ARCH, layers=cfg.num_layers,
+         d_model=cfg.d_model, heads=[cfg.num_heads, cfg.num_kv_heads],
+         head_dim=cfg.head_dim, params=n_params, dtype=cfg.dtype,
+         **LM_SERVE, init_s=init_s, prefill_ms=stats["prefill_ms"],
+         decode_tokens_per_s=stats["decode_tokens_per_s"],
+         max_memory_allocated=peak, launches=launches,
+         last_layer_flash_call=layer_call,
+         logit_tolerance=[LOGIT_ATOL, LOGIT_RTOL],
+         control_hidden_keys=[CONTROL_KEYS.start, CONTROL_KEYS.stop],
+         prefill_kernel_vs_plain=prefill_read,
+         prefill_control_vs_plain=prefill_control,
+         teacher_forced_steps=TEACHER_STEPS,
+         decode_vs_full=decode_read, decode_vs_control_full=decode_control,
+         prefill_profile=prefill_prof, decode_step_profile=decode_prof,
+         sample_output=stats["sample_output"])
+    return {"params": params, "launches": launches}
+
+
+def phase_lm_forward(dev, params, reset_counts, read_counts) -> None:
+    """``Model.loss_fn`` forward at B x S = 2 x 2048 through the kernel and
+    through the plain attention, on the same weights."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import Model
+
+    cfg = params.cfg
+    b, s = LM_FORWARD["batch"], LM_FORWARD["seq"]
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (b, s + 1))
+    toks = torch.from_numpy(toks).to(dev)
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:],
+             "mask": torch.ones(b, s, device=dev)}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss, _ = Model(cfg).loss_fn(params, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+        plain, _ = Model(cfg, plain=True).loss_fn(params, batch)
+        with plain_attention_replaced(hidden_tile_attention):
+            control, _ = Model(cfg, plain=True).loss_fn(params, batch)
+    if launches["flash_attention"] != cfg.num_layers:
+        raise AssertionError(f"loss_fn launched {launches}")
+    loss, plain, control = float(loss), float(plain), float(control)
+    if not math.isfinite(loss):
+        raise AssertionError(f"loss {loss} is not finite")
+    hold(f"loss {loss} vs plain {plain} (atol {LOSS_ATOL})",
+         abs(loss - plain) / LOSS_ATOL, abs(control - plain) / LOSS_ATOL)
+    emit("lm_forward", arch=cfg.name, batch=b, seq=s, loss=loss,
+         plain_loss=plain, control_loss=control,
+         loss_atol=LOSS_ATOL, wall_ms=wall_ms, launches=launches,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
 
 
 def main() -> int:
@@ -88,6 +497,7 @@ def main() -> int:
     from repro_torch.core.packed_keys import key_pad
     from repro_torch.data import astro
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as kfa
     from repro_torch.kernels.maxpool import kernel as kmp
     from repro_torch.kernels.maxpool import ref as rmp
     from repro_torch.kernels.ph_distance import kernel as kd
@@ -101,8 +511,10 @@ def main() -> int:
     from repro_torch.pipeline.scheduler import bucket_shape
 
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
     libraries = {"ph_phase_a": ka.LIBRARY, "ph_phase_c": kc.LIBRARY,
-                 "maxpool": kmp.LIBRARY, "ph_distance": kd.LIBRARY}
+                 "maxpool": kmp.LIBRARY, "ph_distance": kd.LIBRARY,
+                 "flash_attention": kfa.LIBRARY}
 
     def reset_counts() -> None:
         for lib in libraries.values():
@@ -110,21 +522,6 @@ def main() -> int:
 
     def read_counts() -> dict:
         return {name: lib.launches for name, lib in libraries.items()}
-
-    def cuda_ms(fn, reps: int = 10) -> float:
-        """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
 
     def same_diagram(a, b) -> bool:
         return all(np.array_equal(x, y) for x, y in
@@ -155,10 +552,6 @@ def main() -> int:
         return t.to(dtype).to(dev).contiguous()
 
     err = {name: 0.0 for name in libraries}
-
-    def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
-        return float((a.double() - b.double()).abs().max()) if a.numel() \
-            else 0.0
 
     def check_phase_a(x: torch.Tensor, s: int, label: str) -> None:
         p_k, m_k = ka.phase_a(x, strip_rows=s)
@@ -619,6 +1012,11 @@ def main() -> int:
     emit("oracle", size=s, features=checked,
          merges=["scan", "boruvka/xla", "boruvka/fused"], equal=True)
 
+    # -- 12-14. flash attention, LM serving, LM forward ----------------------
+    fa = phase_flash_attention(dev, rng, err)
+    lm = phase_lm_serve(dev, reset_counts, read_counts)
+    phase_lm_forward(dev, lm["params"], reset_counts, read_counts)
+
     # -- kernel table, card, result ----------------------------------------
     kernels = [
         {"name": "ph_phase_a", "route": "cuda",
@@ -649,6 +1047,12 @@ def main() -> int:
          "max_abs_err": err["ph_distance"],
          "ms": d_ms, "plain_ms": d_plain_ms, "bound_ms": d_bound_ms,
          "bound_by": d_bound_by, "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:35",
+         "launches": lm["launches"]["flash_attention"],
+         "max_abs_err": err["flash_attention"], **fa},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,4 +1,4 @@
-"""Synthetic astronomical images (paper §6.2), numpy only.
+"""Synthetic astronomical images (paper §6.2) and their thresholds.
 
 The port's own copy of the frame recipe in ``repro.data.astro``:
 
@@ -15,6 +15,7 @@ of a filter level.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 DENSITY_PER_KPX2 = 3.4 / 1000.0    # paper: ~340k objects on 10k x 10k
 
@@ -94,11 +95,32 @@ def generate_image(image_id: int, size: int = 1024, **kwargs) -> np.ndarray:
     return generate_window(image_id, 0, 0, size, size, size=size, **kwargs)
 
 
-def estimate_threshold(img: np.ndarray, n_sigma: float = 2.0) -> float:
+def _host_array(img) -> np.ndarray:
+    """A numpy array, or a host tensor as one; bfloat16 widens to float32,
+    which is what ``img - med`` promotes a numpy bfloat16 array to."""
+    if isinstance(img, torch.Tensor):
+        return (img.float() if img.dtype == torch.bfloat16 else img).numpy()
+    return img
+
+
+def _median(img) -> float:
+    """``np.median`` as the reference takes it.  A bfloat16 tensor
+    (bfloat16 has no numpy dtype without ``ml_dtypes``) keeps bfloat16
+    arithmetic: numpy averages the two middle values of an even count in
+    bfloat16, so their mean is rounded to bfloat16."""
+    if isinstance(img, torch.Tensor) and img.dtype == torch.bfloat16:
+        s = img.flatten().sort().values
+        m = s.numel() // 2
+        return float(s[m] if s.numel() % 2 else (s[m - 1] + s[m]) / 2)
+    return float(np.median(_host_array(img)))
+
+
+def estimate_threshold(img, n_sigma: float = 2.0) -> float:
     """Per-image background threshold (median + n_sigma * MAD-sigma), the
-    paper's Variant-2 'threshold acquired with each image'."""
-    med = float(np.median(img))
-    mad = float(np.median(np.abs(img - med)))
+    paper's Variant-2 'threshold acquired with each image'.  ``img`` is a
+    numpy array or a host tensor (bfloat16 included)."""
+    med = _median(img)
+    mad = float(np.median(np.abs(_host_array(img) - med)))
     return med + n_sigma * 1.4826 * mad
 
 
@@ -115,8 +137,7 @@ def _level_name(level) -> str:
     return name
 
 
-def filter_threshold(img: np.ndarray, level) -> tuple[float | None,
-                                                       float]:
+def filter_threshold(img, level) -> tuple[float | None, float]:
     """Variant 2: per-image exclusion threshold.
 
     Returns (truncate_value or None, dropped pixel fraction).  The threshold
@@ -130,4 +151,4 @@ def filter_threshold(img: np.ndarray, level) -> tuple[float | None,
     if factor is None:
         return None, 0.0
     t = estimate_threshold(img) * factor
-    return float(t), float((img < t).mean())
+    return float(t), float((_host_array(img) < t).mean())

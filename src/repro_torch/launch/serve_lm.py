@@ -1,0 +1,111 @@
+"""**Language-model** serving: prefill + greedy decode over one batch.
+
+Counterpart of ``repro.launch.serve_lm`` on one device.  The weights are
+random, drawn on the model's device from a ``torch.Generator`` seeded
+with ``seed`` (a 12 B-parameter model is never drawn on the host), unless
+the caller hands in built ``params``; the prompts are drawn with numpy
+from the same seed, as the reference draws them.  The KV caches are
+updated in place by each decode step (the reference's are functional).
+Tokens stay on the device until the end, so decode does no per-step
+readback.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm --full-config \
+        --arch mistral_nemo_12b          # on the card
+
+On the card the flash kernel takes head dims 64, 128 and 256; the smoke
+configs' 16 raises there.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import get_config, get_smoke_config
+from repro_torch.models.model import Model
+
+
+def make_prompts(vocab_size: int, batch: int, prompt_len: int,
+                 seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, vocab_size, (batch, prompt_len), dtype=np.int32)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(arch: str, *, smoke: bool = True, batch: int = 4,
+          prompt_len: int = 32, gen_len: int = 32, max_len: int = 128,
+          seed: int = 0, device=None, params=None, verbose: bool = True):
+    """Prefill ``batch`` random prompts and decode ``gen_len`` tokens
+    greedily.  Returns (tokens (batch, gen_len) numpy, stats)."""
+    cfg = params.cfg if params is not None else \
+        (get_smoke_config if smoke else get_config)(arch)
+    if prompt_len + gen_len - 1 > max_len:
+        raise ValueError(f"prompt_len + gen_len - 1 = "
+                         f"{prompt_len + gen_len - 1} exceeds max_len "
+                         f"{max_len}")
+    model = Model(cfg, device=device)
+    dev = model.device
+    stats = {"arch": cfg.name, "device": str(dev), "batch": batch,
+             "prompt_len": prompt_len, "gen_len": gen_len,
+             "max_len": max_len}
+    if params is None:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = model.init(gen)
+        _sync(dev)
+        stats["init_s"] = time.perf_counter() - t0
+
+    prompts = make_prompts(cfg.vocab_size, batch, prompt_len, seed)
+    tokens = torch.from_numpy(prompts).to(dev).long()
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, {"tokens": tokens},
+                                   max_len=max_len)
+    next_tok = torch.argmax(logits[:, -1:], -1)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    out_tokens = [next_tok]
+    t0 = time.perf_counter()
+    for _ in range(gen_len - 1):
+        logits, caches = model.decode_step(params, next_tok, caches)
+        next_tok = torch.argmax(logits, -1)
+        out_tokens.append(next_tok)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+
+    gen = torch.cat(out_tokens, dim=1).cpu().numpy().astype(np.int32)
+    stats.update(prefill_ms=t_prefill * 1e3,
+                 decode_tokens_per_s=batch * (gen_len - 1)
+                 / max(t_decode, 1e-9),
+                 sample_output=gen[0][:16].tolist())
+    if verbose:
+        print(json.dumps(stats, indent=1))
+    return gen, stats
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen1_5_0_5b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--full-config", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA device)")
+    args = ap.parse_args()
+    serve(args.arch, smoke=not args.full_config, batch=args.batch,
+          prompt_len=args.prompt_len, gen_len=args.gen_len,
+          device=args.device)
+
+
+if __name__ == "__main__":
+    main()

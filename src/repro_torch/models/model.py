@@ -1,0 +1,69 @@
+"""Model facade: init / loss / prefill / decode_step / init_caches over the
+decoder-only configs, with the reference facade's names.
+
+``params`` is the :class:`~repro_torch.models.transformer.Transformer`
+holding the weights on the model's device.  The model runs on the CUDA
+device unless the caller passes another ``device`` (the tests pass
+``"cpu"``); without CUDA, ``Model(cfg)`` raises instead of falling back.
+``plain=True`` selects the plain attention version on the card (the
+on-card comparison's reference run); the default runs the flash kernel
+on CUDA tensors.  Encoder-decoder configs are still to be ported.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA device; raises when there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "the LM runs on the CUDA device by default and no CUDA "
+                "device is available; pass device='cpu' to run the plain "
+                "PyTorch versions on the host")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 plain: bool = False):
+        if cfg.is_encdec:
+            raise NotImplementedError(
+                "encoder-decoder models are not ported yet (ROADMAP.md "
+                "queue 1 item 12)")
+        transformer.check_config(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.plain = plain
+
+    # -- parameters --------------------------------------------------------
+    def init(self, generator: torch.Generator) -> transformer.Transformer:
+        """Random weights drawn on the model's device; ``generator`` must
+        live there too."""
+        return transformer.init_params(self.cfg, generator=generator,
+                                       device=self.device)
+
+    def load(self, state: dict) -> transformer.Transformer:
+        """Weights from a state dict (e.g. ``convert.params_from_jax``)."""
+        return transformer.params_from_state(self.cfg, state,
+                                             device=self.device)
+
+    # -- steps --------------------------------------------------------------
+    def loss_fn(self, params, batch):
+        return transformer.loss_fn(params, batch, plain=self.plain)
+
+    def prefill(self, params, batch, *, max_len: int):
+        return transformer.prefill(params, batch["tokens"], max_len=max_len,
+                                   plain=self.plain)
+
+    def decode_step(self, params, token, caches):
+        return transformer.decode_step(params, token, caches)
+
+    def init_caches(self, batch: int, max_len: int):
+        return transformer.init_caches(self.cfg, batch, max_len,
+                                       device=self.device)

@@ -310,14 +310,14 @@ class PHEngine:
 
     def auto_threshold(self, image) -> float | None:
         """The Variant-2 threshold ``config.filter_level`` implies for
-        ``image`` (``None`` under VANILLA), from the numpy astro statistic."""
+        ``image`` (``None`` under VANILLA), from the astro statistic on the
+        host.  A bfloat16 image stays a tensor, so its median is taken in
+        bfloat16 arithmetic as the reference's numpy median is."""
         if self.config.filter_level is FilterLevel.VANILLA:
             return None
         from repro_torch.data import astro
         x = as_host_tensor(image).detach().cpu()
-        if x.dtype == torch.bfloat16:
-            x = x.to(torch.float32)
-        host = x.numpy()
+        host = x if x.dtype == torch.bfloat16 else x.numpy()
         if self.config.filtration == "sublevel":
             t, _ = astro.filter_threshold(-host, self.config.filter_level)
             return None if t is None else -t

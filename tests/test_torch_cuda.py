@@ -10,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import get_smoke_config
 from repro_torch.core import diagram_to_numpy
 from repro_torch.data import astro
+from repro_torch.kernels.flash_attention import kernel as kfa
+from repro_torch.kernels.flash_attention import ref as rfa
 from repro_torch.kernels.ph_phase_a import kernel as ka
 from repro_torch.kernels.ph_phase_a import ref as ra
 from repro_torch.kernels.maxpool import kernel as kmp
@@ -20,6 +23,9 @@ from repro_torch.kernels.ph_distance import kernel as kd
 from repro_torch.kernels.ph_distance import ref as rd
 from repro_torch.kernels.ph_phase_c import kernel as kc
 from repro_torch.kernels.ph_phase_c import ref as rc
+from repro_torch.launch import serve_lm
+from repro_torch.models import transformer
+from repro_torch.models.model import Model
 from repro_torch.ph import PHConfig, PHEngine
 
 DTYPES = (torch.uint8, torch.int16, torch.int32, torch.float32,
@@ -163,3 +169,66 @@ def test_engine_paths_launch_the_new_kernels():
     sw, bn = eng.distance_matrix(batch)
     assert kd.LIBRARY.launches == 1 and sw.is_cuda
     assert sw[1, 3] == 0 and bn[1, 3] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_attention_kernel_matches_plain_version(dtype, tol):
+    """GQA 32/8, MQA, MHA, a window, non-causal, ragged Sq != Skv, rows
+    with no visible key, hd 64/128/256; the working type's tolerance
+    (float32 without TF32: the plain version's einsums run in full
+    float32)."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    for b, h, kv, sq, skv, hd, causal, window in (
+            (1, 32, 8, 200, 200, 128, True, None),
+            (2, 8, 1, 256, 256, 64, True, None),
+            (2, 4, 4, 130, 130, 256, False, None),
+            (1, 4, 2, 256, 256, 64, True, 100),
+            (1, 4, 2, 70, 150, 128, False, None),
+            (1, 2, 2, 8, 4, 64, True, 2)):
+        q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                   .to(dtype).cuda() for s in ((b, h, sq, hd),
+                                               (b, kv, skv, hd),
+                                               (b, kv, skv, hd)))
+        got = kfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        want = rfa.attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        # Transposed (B, S, heads, hd) views go in without a copy.
+        qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+        again = kfa.flash_attention_fwd(qt, k, v, causal=causal,
+                                        window=window)
+        assert torch.equal(again, got)
+    with pytest.raises(ValueError, match="head dims"):
+        kfa.flash_attention_fwd(q[..., :32], k[..., :32], v[..., :32])
+
+
+@pytest.mark.cuda
+def test_smoke_serve_on_card_matches_cpu_run():
+    """The same float32 weights (smoke mistral, head_dim 64 so the kernel
+    takes it) on the card and on the host: prefill logits within 1e-4,
+    equal greedy tokens, one flash launch per layer for the prefill."""
+    _need_cuda()
+    cfg = get_smoke_config("mistral_nemo_12b").replace(head_dim=64)
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    state = {k: t.detach() for k, t in params.state_dict().items()}
+    gpu_params = Model(cfg).load(state)
+    kw = dict(batch=2, prompt_len=40, gen_len=8, max_len=64, seed=1,
+              verbose=False)
+    kfa.LIBRARY.launches = 0
+    got, _ = serve_lm.serve("mistral_nemo_12b", params=gpu_params, **kw)
+    assert kfa.LIBRARY.launches == cfg.num_layers
+    want, _ = serve_lm.serve("mistral_nemo_12b", device="cpu",
+                             params=params, **kw)
+    np.testing.assert_array_equal(got, want)
+    tokens = torch.from_numpy(serve_lm.make_prompts(cfg.vocab_size, 2, 40,
+                                                    1)).long()
+    lg_gpu, _ = transformer.prefill(gpu_params, tokens.cuda(), max_len=64)
+    lg_cpu, _ = transformer.prefill(params, tokens, max_len=64)
+    torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, atol=1e-4, rtol=1e-4)

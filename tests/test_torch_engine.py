@@ -96,6 +96,46 @@ def test_astro_frames_are_bitwise_equal():
             jastro.filter_threshold(img, level)
 
 
+def _bf16(img):
+    return np.asarray(jnp.asarray(img, jnp.bfloat16))     # numpy bfloat16
+
+
+@pytest.mark.parametrize("filtration,want", [("superlevel", 110.3782),
+                                             ("sublevel", -110.3782 + 200)])
+def test_bfloat16_auto_threshold_matches_reference(filtration, want):
+    """The reference takes the median of a bfloat16 frame in bfloat16
+    arithmetic (100.0, where float32 gives 100.25) and the MAD in float32;
+    the port does the same with torch on the host."""
+    img = _bf16(tastro.generate_window(0, 0, 0, 32, 32, size=32))
+    cfg = dict(filter_level="filter_std", filtration=filtration)
+    got = _engine(**cfg).auto_threshold(img)
+    assert got == JEngine(JConfig(**cfg)).auto_threshold(img)
+    assert got == pytest.approx(want, abs=1e-9)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 2), (7, 9), (8, 8), (31, 31),
+                                   (33, 32)])
+@pytest.mark.parametrize("filtration", ["superlevel", "sublevel"])
+def test_bfloat16_auto_threshold_sweep_matches_reference(shape, filtration):
+    """Even and odd pixel counts, gaussian and tied values, every filter
+    level: the port's bfloat16 statistic equals the reference's exactly."""
+    rng = np.random.default_rng(sum(shape))
+    images = [rng.normal(loc=100.0, scale=7.0, size=shape),
+              rng.integers(0, 4, size=shape) * 1.5 + 0.25]
+    for img in map(_bf16, images):
+        for level in ("filter_light", "filter_std", "filter_heavy"):
+            cfg = dict(filter_level=level, filtration=filtration)
+            assert _engine(**cfg).auto_threshold(img) == \
+                JEngine(JConfig(**cfg)).auto_threshold(img), (level, img)
+    batch = _bf16(np.stack(images[:1] * 2 + [rng.normal(size=shape)]))
+    cfg = dict(max_features=64, max_candidates=64, filter_level="filter_std",
+               filtration=filtration)
+    np.testing.assert_array_equal(
+        np.asarray(_engine(**cfg).run_batch(batch).threshold, np.float64),
+        np.asarray(JEngine(JConfig(**cfg)).run_batch(batch).threshold,
+                   np.float64))
+
+
 @pytest.mark.parametrize("merge_impl", ["boruvka", "scan"])
 def test_run_and_run_batch_filter_std_match_reference(merge_impl):
     cfg = dict(max_features=512, max_candidates=1024, merge_impl=merge_impl,
@@ -236,7 +276,10 @@ def test_port_import_leaves_jax_out():
             "import repro_torch.kernels.ph_phase_a, "
             "repro_torch.kernels.ph_phase_c, repro_torch.kernels.maxpool, "
             "repro_torch.kernels.ph_distance, "
-            "repro_torch.pipeline.padding, repro_torch.pipeline.scheduler; "
+            "repro_torch.pipeline.padding, repro_torch.pipeline.scheduler, "
+            "repro_torch.kernels.flash_attention, repro_torch.configs.base, "
+            "repro_torch.models.model, repro_torch.models.convert, "
+            "repro_torch.launch.serve_lm; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "or m == 'repro'); "

@@ -1,0 +1,213 @@
+"""Port parity: the LM serving path (repro_torch.models, .configs,
+.launch.serve_lm) vs the JAX package.
+
+Weights come from the reference's init (``jax.random.PRNGKey``), go
+through numpy and ``convert.params_from_jax`` into the port, and both
+packages run the same seeded tokens on the CPU.  The smoke configs are
+float32, so the two are held at float32 tolerances: 1e-4 absolute and
+relative on logits and the loss (two layers of float32 matmuls, softmax
+and RoPE summed in other orders), 1e-5 on cache contents (one
+projection and RoPE).  Greedy tokens must be equal.
+"""
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.configs import base as jbase
+from repro.distributed.context import single_device_ctx
+from repro.launch import serve_lm as jserve
+from repro.models import attention as jattention
+from repro.models import transformer as jtr
+from repro_torch.configs import base as tbase
+from repro_torch.launch import serve_lm
+from repro_torch.models import attention, transformer
+from repro_torch.models.convert import params_from_jax
+from repro_torch.models.model import Model
+
+TOL = 1e-4
+B, S = 2, 32
+
+# (name, arch, config overrides): the two ported dense decoders, a padded
+# vocabulary and a local-window stack with ring caches.
+CONFIGS = [
+    ("mistral", "mistral_nemo_12b", {}),
+    ("qwen", "qwen1_5_0_5b", {}),
+    ("qwen_padded_vocab", "qwen1_5_0_5b", {"vocab_size": 500}),
+    ("mistral_local", "mistral_nemo_12b",
+     {"block_pattern": ("lattn",), "local_window": 6}),
+]
+
+
+def _configs(arch, overrides):
+    return (jbase.get_smoke_config(arch).replace(**overrides),
+            tbase.get_smoke_config(arch).replace(**overrides))
+
+
+@pytest.fixture(scope="module")
+def ctx():
+    return single_device_ctx()
+
+
+@pytest.fixture(scope="module", params=CONFIGS, ids=[c[0] for c in CONFIGS])
+def pair(request):
+    """(reference config, its params, port model, port params, tokens)."""
+    _, arch, overrides = request.param
+    jcfg, tcfg = _configs(arch, overrides)
+    jparams = jtr.init_params(jax.random.PRNGKey(1), jcfg)
+    model = Model(tcfg, device="cpu")
+    params = model.load(params_from_jax(tcfg, jax.tree.map(np.asarray,
+                                                           jparams)))
+    toks = np.random.default_rng(1).integers(0, jcfg.vocab_size, (B, S))
+    return jcfg, jparams, model, params, toks
+
+
+def _close(got, want, tol=TOL, msg=""):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol, err_msg=msg)
+
+
+def test_configs_match_reference():
+    for arch in tbase.ARCH_IDS:
+        for getter in ("get_config", "get_smoke_config"):
+            want = getattr(jbase, getter)(arch)
+            got = getattr(tbase, getter)(arch)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+            assert got.padded_vocab == want.padded_vocab
+    assert tbase.SHAPES.keys() == jbase.SHAPES.keys()
+    for name, shape in tbase.SHAPES.items():
+        assert dataclasses.asdict(shape) == dataclasses.asdict(
+            jbase.SHAPES[name])
+    with pytest.raises(ValueError, match="not ported"):
+        tbase.get_config("rwkv6_3b")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Model(jbase.get_smoke_config("llama4_scout_17b_a16e"), device="cpu")
+
+
+def test_converted_state_has_reference_names_and_shapes(pair):
+    jcfg, jparams, _, params, _ = pair
+    leaves = jax.tree_util.tree_leaves_with_path(jparams)
+    assert len(params.state_dict()) == len(leaves) - len(
+        jax.tree_util.tree_leaves_with_path(jparams["blocks"])) + \
+        jcfg.num_layers * len(jax.tree_util.tree_leaves(jparams["blocks"]))
+    wq = np.array(jparams["blocks"]["attn"]["wq"][1])
+    assert torch.equal(params.blocks[1].attn["wq"], torch.from_numpy(wq))
+    assert tuple(params.state_dict()["embed.embedding"].shape) == \
+        (jcfg.padded_vocab, jcfg.d_model)
+
+
+def test_full_sequence_logits_and_loss_match(pair, ctx):
+    jcfg, jparams, model, params, toks = pair
+    jt = jnp.asarray(toks, jnp.int32)
+    tt = torch.from_numpy(toks)
+    batch = {"inputs": jt, "targets": jnp.roll(jt, -1, axis=1),
+             "mask": jnp.ones((B, S), jnp.float32).at[0, -3:].set(0.0)}
+    tbatch = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+    with ctx.mesh:
+        h, _, _ = jtr.backbone(params=jparams, x=jtr.embed_tokens(
+            jparams, jt, jcfg), cfg=jcfg, ctx=ctx)
+        want = jtr.logits_from_hidden(jparams, h, jcfg)
+        jloss, jmetrics = jtr.loss_fn(jparams, batch, jcfg, ctx)
+    with torch.no_grad():
+        th, _ = transformer.backbone(params,
+                                     transformer.embed_tokens(params, tt))
+        got = transformer.logits_from_hidden(params, th)
+        loss, metrics = model.loss_fn(params, tbatch)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    _close(got, want)
+    _close(loss, jloss)
+    _close(metrics["ce"], jmetrics["ce"])
+    if jcfg.padded_vocab != jcfg.vocab_size:
+        assert (got[..., jcfg.vocab_size:] == -1e30).all()
+
+
+def test_prefill_caches_and_teacher_forced_decode_match(pair, ctx):
+    jcfg, jparams, model, params, toks = pair
+    jt = jnp.asarray(toks, jnp.int32)
+    tt = torch.from_numpy(toks)
+    half = S // 2
+    with ctx.mesh:
+        jlogits, jpre = jtr.prefill(jparams, jt[:, :half], jcfg, ctx,
+                                    max_len=S)
+        step = jax.jit(lambda p, t, c: jtr.decode_step(p, t, c, jcfg, ctx))
+        jsteps, jc = [], jpre               # the reference's are immutable
+        for t in range(half, S):
+            lg, jc = step(jparams, jt[:, t:t + 1], jc)
+            jsteps.append(np.asarray(lg[:, 0]))
+    logits, caches = model.prefill(params, {"tokens": tt[:, :half]},
+                                   max_len=S)
+    _close(logits, jlogits, msg="prefill logits")
+    assert len(caches) == jcfg.num_layers
+    for i, cache in enumerate(caches):
+        assert cache.length == half
+        _close(cache.k, jpre.k[i], 1e-5, f"layer {i} k")
+        _close(cache.v, jpre.v[i], 1e-5, f"layer {i} v")
+    with torch.no_grad():
+        full = transformer.logits_from_hidden(params, transformer.backbone(
+            params, transformer.embed_tokens(params, tt))[0])
+    for i, t in enumerate(range(half, S)):
+        lg, caches = model.decode_step(params, tt[:, t:t + 1], caches)
+        _close(lg[:, 0], jsteps[i], msg=f"decode step {t}")
+        _close(lg[:, 0], full[:, t], msg=f"decode vs full at {t}")
+    assert caches[0].length == S
+
+
+def test_blockwise_attention_matches_reference_xla_path():
+    """The model's full-sequence attention (the flash op) and the
+    reference's blockwise XLA path compute the same contraction, ragged
+    lengths included."""
+    rng = np.random.default_rng(4)
+    for s, window in ((128, None), (100, None), (77, 24)):
+        q, k, v = (rng.normal(size=(2, s, h, 32)).astype(np.float32)
+                   for h in (4, 2, 2))
+        want = jattention.blockwise_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            q_positions=None, kv_positions=None, causal=True, window=window,
+            q_block=64, kv_block=64)
+        got = attention.blockwise_attention(
+            *map(torch.from_numpy, (q, k, v)), causal=True, window=window)
+        _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("arch", tbase.ARCH_IDS)
+def test_serve_greedy_tokens_equal_reference(arch):
+    """``serve`` with the reference's weights (``PRNGKey(0)``, as its serve
+    draws them) gives the reference's greedy tokens."""
+    kw = dict(batch=2, prompt_len=12, gen_len=6, max_len=24, seed=3)
+    want, _ = jserve.serve(arch, smoke=True, verbose=False, **kw)
+    jcfg, tcfg = _configs(arch, {})
+    tree = jax.tree.map(np.asarray, jtr.init_params(jax.random.PRNGKey(0),
+                                                    jcfg))
+    params = Model(tcfg, device="cpu").load(params_from_jax(tcfg, tree))
+    got, stats = serve_lm.serve(arch, device="cpu", params=params,
+                                verbose=False, **kw)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert stats["device"] == "cpu" and "init_s" not in stats
+
+
+def test_serve_draws_weights_from_seed_and_checks_lengths():
+    a, stats = serve_lm.serve("mistral_nemo_12b", device="cpu", batch=1,
+                              prompt_len=8, gen_len=4, max_len=16,
+                              verbose=False)
+    b, _ = serve_lm.serve("mistral_nemo_12b", device="cpu", batch=1,
+                          prompt_len=8, gen_len=4, max_len=16, verbose=False)
+    assert a.shape == (1, 4) and np.array_equal(a, b) and "init_s" in stats
+    with pytest.raises(ValueError, match="max_len"):
+        serve_lm.serve("mistral_nemo_12b", device="cpu", prompt_len=8,
+                       gen_len=4, max_len=10, verbose=False)
+
+
+def test_model_defaults_to_cuda_and_never_falls_back():
+    cfg = tbase.get_smoke_config("qwen1_5_0_5b")
+    if torch.cuda.is_available():
+        assert Model(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Model(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve_lm.serve("qwen1_5_0_5b", verbose=False)
+    assert Model(cfg, device="cpu").device.type == "cpu"
