@@ -8,16 +8,21 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 1. device  — card name and power limit (nvidia-smi), torch and CUDA versions;
 2. build   — the five CUDA kernels built from
              ``src/repro_torch/kernels/*/csrc`` with one ``nvcc`` per source,
-             started together;
+             started together; ptxas's registers, shared memory and spills
+             for each instantiation of the flash and maxpool kernels;
 3. phase_a — the phase-A kernel against its plain version, bitwise, over the
              five dtypes, strip heights 1/8/16, ragged strips, a ramp, a
              constant image, a wide image and the 4096² astro frame; timed
              at 4096² float32;
 4. maxpool — the 3x3 pooling kernel (max+argmax, max, min) against its plain
-             version, bitwise, over the five dtypes at 1x1, 1x29, 29x1 and
-             37x53 (noise, heavy ties, borders equal to the pad fill: uint8
-             zeros, int32 minimum) and at 4096² (the float32 frame, int32
-             ties); timed at 4096² float32 beside ``max_pool2d``;
+             version, bitwise (zeros' signs too), over the five dtypes at
+             1x1, 1x29, 29x1 and 37x53 (noise, heavy ties, borders equal to
+             the pad fill: uint8 zeros, int32 minimum), at the tile edges
+             4095x4097, 33x129, 1x4097, 33x(4096 + one vector) and batches
+             (3x33x129, 3x33x128, 2x40x4096), on views whose base is not
+             16-byte aligned, on signed zeros, and at 4096² (the
+             float32 frame, int32 ties); timed at 4096² float32 in turns
+             with ``max_pool2d``;
 5. main    — ``PHEngine(PHConfig(merge_impl="boruvka", phase_c_impl="fused",
              filter_level="filter_std")).run`` on the 4096² frame with the
              device left at its default: regrow, Boruvka rounds, steady-state
@@ -45,10 +50,12 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
              Boruvka-xla and Boruvka-fused merges;
 12. flash_attention — the flash attention kernel against its plain version
              (``FLASH_CASES``: GQA, MQA, MHA, windows, non-causal, ragged
-             Sq != Skv, rows that see no key, hd 64/128/256) in float32
-             and bfloat16 at ``FLASH_TOL``, then at the main path's shapes
-             (``FLASH_MAIN_SHAPES``, strided views as the model passes
-             them); timed at the LM prefill's shape beside its bound and
+             Sq != Skv, rows that see no key, hd 64/128/256, the edges of
+             the kernel's tiles) in float32 and bfloat16 at ``FLASH_TOL``,
+             then at the main path's shapes (``FLASH_MAIN_SHAPES``, strided
+             views as the model passes them); the counts of wgmma and TMA
+             instructions in its SASS (cuobjdump); timed at the LM
+             prefill's shape beside its bound, in turns with
              ``scaled_dot_product_attention``;
 13. lm_serve — ``serve`` of mistral_nemo_12b at full width and depth (random
              weights drawn on the card from seed 0): 4 prompts of 1024
@@ -94,7 +101,10 @@ BF16_OPS_PER_S = 989e12          # H100 SXM bfloat16 tensor cores, dense
 # flash_attention cases (B, H, KV, Sq, Skv, hd, causal, window): the six of
 # tests/test_kernels_flash_attention.py, then the LM's GQA 32/8 at hd 128
 # with a ragged length, hd 256, a window over a ragged length, a ragged
-# Sq != Skv, and rows that see no key.
+# Sq != Skv, and rows that see no key; then the edges of the bfloat16
+# kernel's tiles (128 query rows; 128 keys, 64 at hd 256): the 1032-token
+# teacher-forced length, Skv of 129 and 191, Sq one row into a query tile,
+# window edges inside a key tile, hd 64 and 256 at a 128-row tile.
 FLASH_CASES = ((1, 1, 1, 128, 128, 64, True, None),
                (2, 4, 2, 128, 128, 64, True, None),
                (1, 8, 1, 256, 256, 128, True, None),
@@ -105,7 +115,17 @@ FLASH_CASES = ((1, 1, 1, 128, 128, 64, True, None),
                (2, 4, 4, 130, 130, 256, False, None),
                (1, 8, 2, 300, 300, 256, True, 100),
                (1, 4, 2, 70, 150, 128, False, None),
-               (1, 2, 2, 8, 4, 64, True, 2))
+               (1, 2, 2, 8, 4, 64, True, 2),
+               (1, 32, 8, 1032, 1032, 128, True, None),
+               (1, 4, 2, 100, 129, 128, False, None),
+               (1, 4, 2, 191, 191, 128, True, None),
+               (1, 4, 2, 129, 129, 128, True, None),
+               (1, 4, 2, 257, 300, 128, False, None),
+               (1, 4, 2, 300, 300, 128, True, 70),
+               (1, 4, 2, 256, 256, 64, True, 100),
+               (1, 4, 1, 129, 129, 64, True, None),
+               (1, 4, 1, 129, 129, 256, True, None),
+               (1, 4, 2, 256, 256, 256, True, 70))
 # The working type's tolerance (atol = rtol), as the reference's kernel
 # test states it; float32 compares without TF32.
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -128,6 +148,9 @@ TEACHER_STEPS = 8
 LOGIT_ATOL, LOGIT_RTOL = 0.25, 0.05
 LOSS_ATOL = 5e-4                 # mean cross-entropy over 4096 tokens
 CONTROL_KEYS = slice(320, 384)   # the sixth 64-key tile
+# The design of each of the two redesigned kernels.
+DESIGN = {"maxpool3x3": "tiled separable 3x3, 16-byte vectors",
+          "flash_attention": "warp-specialised wgmma + TMA pipeline"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -154,6 +177,62 @@ def cuda_ms(fn, reps: int = 10) -> float:
 def max_abs_diff(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() \
         else 0.0
+
+
+def in_turns(kernel_fn, library_fn) -> dict:
+    """A kernel and its library call timed in turns (kernel, library,
+    library, kernel; each a ``cuda_ms`` median), so that both see the
+    same card state; ``ms`` and ``library_ms`` are the means of each
+    pair."""
+    k1, l1, l2, k2 = (cuda_ms(fn) for fn in (kernel_fn, library_fn,
+                                             library_fn, kernel_fn))
+    return {"turns_ms": {"kernel": [k1, k2], "library": [l1, l2]},
+            "ms": (k1 + k2) / 2, "library_ms": (l1 + l2) / 2}
+
+
+def ptxas_report(lib) -> dict | None:
+    """Registers, shared memory and spills of each kernel of a library,
+    from its build's ``-Xptxas -v`` report (None for a cached build)."""
+    import re
+    if lib.ptxas_log is None:
+        return None
+    out, name = {}, None
+    for line in lib.ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def sass_counts(lib) -> dict:
+    """Counts of Hopper's wgmma (HGMMA) and TMA load/store (UTMALDG,
+    UTMASTG) instructions in a built library's SASS, or None with the
+    reason where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {"HGMMA": None, "UTMALDG": None, "UTMASTG": None,
+                "why": "no cuobjdump in the CUDA toolkit here"}
+    sass = subprocess.run([tool, "-sass", str(lib.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HGMMA", "UTMALDG", "UTMASTG")}
 
 
 def phase_flash_attention(dev, rng, err) -> dict:
@@ -204,12 +283,18 @@ def phase_flash_attention(dev, rng, err) -> dict:
 
     b, h, kv, s, hd = FLASH_SHAPE
     q, k, v = views(*FLASH_SHAPE)
-    ms = cuda_ms(lambda: kfa.flash_attention_fwd(q, k, v, causal=True))
     plain_ms = cuda_ms(lambda: rfa.attention(q, k, v, causal=True), reps=3)
     k_rep = k.repeat_interleave(h // kv, dim=1)     # SDPA wants H heads
     v_rep = v.repeat_interleave(h // kv, dim=1)
-    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k_rep, v_rep, is_causal=True))
+    timed = in_turns(
+        lambda: kfa.flash_attention_fwd(q, k, v, causal=True),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k_rep, v_rep, is_causal=True))
+    ms, lib_ms = timed["ms"], timed["library_ms"]
+    sass = sass_counts(kfa.LIBRARY)
+    if sass["HGMMA"] == 0 or sass["UTMALDG"] == 0:
+        raise AssertionError(f"the flash library has no wgmma or TMA load "
+                             f"in its SASS: {sass}")
     # Operations the causal mask leaves (two products over the visible
     # (q, k) pairs), bytes of q, k, v read once and o written once.
     pairs = s * (s + 1) // 2
@@ -224,9 +309,10 @@ def phase_flash_attention(dev, rng, err) -> dict:
          main_shape_max_abs_err=main_errs, timed_shape=list(
              FLASH_SHAPE), timed_dtype="bfloat16", causal=True,
          kernel_ms=ms, plain_ms=plain_ms, library_ms_sdpa=lib_ms,
-         flop=ops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+         turns_ms=timed["turns_ms"], flop=ops, bytes=nbytes,
+         bound_ms=bound_ms, bound_by=bound_by, sass=sass)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms}
+            "bound_by": bound_by, "library_ms": lib_ms, "sass": sass}
 
 
 def device_profile(fn) -> dict:
@@ -540,7 +626,12 @@ def main() -> int:
     build_s = _build.build_all(list(libraries.values()))
     emit("build", seconds=round(build_s, 3),
          libraries=[str(lib.library_path().relative_to(ROOT))
-                    for lib in libraries.values()])
+                    for lib in libraries.values()],
+         ptxas={name: ptxas_report(libraries[name])
+                for name in ("flash_attention", "maxpool")},
+         ptxas_note="flash_fwd_wgmma_kernel's registers are its launch "
+                    "share; setmaxnreg leaves the producer warpgroup 24 and "
+                    "gives each consumer warpgroup 240")
 
     # -- 3. phase-A kernel vs plain ---------------------------------------
     rng = np.random.default_rng(0)
@@ -609,6 +700,10 @@ def main() -> int:
                 bad = int((got != want).sum())
                 raise AssertionError(f"maxpool kernel != plain on {label}: "
                                      f"{bad} differing entries")
+            if got.dtype.is_floating_point and not torch.equal(
+                    torch.signbit(got), torch.signbit(want)):
+                raise AssertionError(f"maxpool kernel != plain on {label}: "
+                                     f"the sign of a zero differs")
 
     n_pool = 0
     for dt in dtypes:
@@ -623,22 +718,49 @@ def main() -> int:
             check_pool(torch.full(shape, fill, dtype=dt, device=dev),
                        f"fill-valued{shape}/{dt}")
             n_pool += 1
+        # The edges of the kernel's tiles (32 rows by 32 16-byte vectors of
+        # VEC values), batches, contiguous views whose base is not 16-byte
+        # aligned, heavy ties everywhere and signed zeros.  Widths that are
+        # a multiple of VEC take the 16-byte loads and stores: batches of
+        # them, and 4096 + VEC, whose last vector ends inside a tile.
+        vec = 16 // dt.itemsize
+        for shape in ((4095, 4097), (33, 129), (1, 4097), (3, 33, 129),
+                      (3, 33, 128), (2, 40, 4096), (33, 4096 + vec)):
+            ties = rng.integers(0, 3, size=shape).astype(np.float64)
+            check_pool(as_dtype(ties, dt), f"ties{shape}/{dt}")
+            n_pool += 1
+        odd = as_dtype(rng.integers(0, 3, size=(41, 67)).astype(np.float64),
+                       dt)
+        check_pool(odd[1:], f"unaligned view (40, 67)/{dt}")
+        flat = as_dtype(rng.integers(0, 3, size=1 + 40 * 64)
+                        .astype(np.float64), dt)
+        check_pool(flat[1:].view(40, 64), f"unaligned view (40, 64)/{dt}")
+        n_pool += 2
+        for shape in ((37, 130), (37, 128)):
+            zeros = rng.choice([0.0, -0.0, 1.0, -1.0], size=shape)
+            check_pool(torch.from_numpy(zeros.astype(np.float32)).to(dt)
+                       .to(dev) if dt.is_floating_point
+                       else as_dtype(zeros, dt),
+                       f"signed zeros {shape}/{dt}")
+            n_pool += 1
     comp_ties = torch.from_numpy(rng.integers(
         0, 3, size=(MAIN_SIZE, MAIN_SIZE)).astype(np.int32)).to(dev)
     check_pool(x_main, f"astro {MAIN_SIZE}² float32")
     check_pool(comp_ties, f"ties {MAIN_SIZE}² int32")
     n_pool += 2
-    p_ms = cuda_ms(lambda: kmp.maxargmaxpool3x3(x_main))
     p_plain_ms = cuda_ms(lambda: rmp.maxargmaxpool3x3(x_main))
     x4 = x_main[None, None]
-    p_lib_ms = cuda_ms(lambda: torch.nn.functional.max_pool2d(
-        x4, 3, 1, 1, return_indices=True))
+    p_timed = in_turns(lambda: kmp.maxargmaxpool3x3(x_main),
+                       lambda: torch.nn.functional.max_pool2d(
+                           x4, 3, 1, 1, return_indices=True))
+    p_ms, p_lib_ms = p_timed["ms"], p_timed["library_ms"]
     p_bytes = n * (4 + 4 + 4)            # read f32 image, write value + arg
     p_bound_ms = p_bytes / HBM_BYTES_PER_S * 1e3
     emit("maxpool", cases=n_pool, bitwise_equal=True,
          shape=[MAIN_SIZE] * 2, dtype="float32", kernel_ms=p_ms,
          plain_ms=p_plain_ms, library_ms_max_pool2d_indices=p_lib_ms,
-         bound_ms=p_bound_ms)
+         turns_ms=p_timed["turns_ms"], bound_ms=p_bound_ms,
+         bound_share=p_bound_ms / p_ms)
 
     # -- 5. main path (drives the kernels; its first best-edge round is
     #       captured for the best-edge timing below) --------------------------
@@ -1039,7 +1161,8 @@ def main() -> int:
          "launches": paper_launches["maxpool"],
          "max_abs_err": err["maxpool"],
          "ms": p_ms, "plain_ms": p_plain_ms, "bound_ms": p_bound_ms,
-         "bound_by": "bytes", "library_ms": p_lib_ms},
+         "bound_by": "bytes", "library_ms": p_lib_ms,
+         "design": DESIGN["maxpool3x3"]},
         {"name": "ph_distance", "route": "cuda",
          "source": "src/repro_torch/kernels/ph_distance/csrc/distance.cu",
          "replaces": "src/repro/kernels/ph_distance/kernel.py:33",
@@ -1052,7 +1175,8 @@ def main() -> int:
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:35",
          "launches": lm["launches"]["flash_attention"],
-         "max_abs_err": err["flash_attention"], **fa},
+         "max_abs_err": err["flash_attention"], **fa,
+         "design": DESIGN["flash_attention"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -11,6 +11,8 @@ Every C entry returns ``cudaGetLastError()`` after its launches; the
 wrapper raises on any non-zero code, so a refused launch never passes
 silently.  ``--use_fast_math`` / ``-ftz`` are deliberately absent:
 flushing subnormals would change comparisons against the plain versions.
+``-Xptxas -v`` makes ptxas report each kernel's registers, shared memory
+and spills; a fresh build keeps that report in ``CudaLibrary.ptxas_log``.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from pathlib import Path
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc_path() -> str:
@@ -58,6 +60,7 @@ class CudaLibrary:
         self.functions = functions
         self.error_fn = error_fn
         self.launches = 0
+        self.ptxas_log = None           # set by a build in this process
         self._lib = None
         self._lock = threading.Lock()
 
@@ -87,6 +90,7 @@ class CudaLibrary:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {self.source} "
                                f"(exit {proc.returncode}):\n{err}")
+        self.ptxas_log = err
         os.replace(tmp, out)
 
     def lib(self) -> ctypes.CDLL:

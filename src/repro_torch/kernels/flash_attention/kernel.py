@@ -4,9 +4,10 @@
 The kernel builds with ``nvcc`` at first use (``repro_torch.kernels._build``)
 and launches on PyTorch's current stream.  The wrapper checks device,
 dtypes, shapes and the contiguous head dim, passes every tensor by pointer
-and strides (so transposed views need no copy; a bfloat16 tensor whose
-rows are not 16-byte aligned is copied first), allocates the output with
-``torch.empty`` and counts its launches in ``LIBRARY.launches``.
+and strides (so transposed views need no copy; a bfloat16 tensor that TMA
+cannot address, see ``tma_addressable``, is copied first), allocates the
+output with ``torch.empty`` and counts its launches in
+``LIBRARY.launches``.
 """
 from __future__ import annotations
 
@@ -58,9 +59,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                              f"dim contiguous, got strides {t.stride()}")
 
 
-def _rows_aligned(t: torch.Tensor) -> bool:
-    """The bfloat16 path copies rows 16 bytes at a time."""
-    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+def tma_addressable(t: torch.Tensor) -> bool:
+    """Whether the bfloat16 path's TMA loads can read ``t`` in place: a
+    16-byte aligned base and, on each dim that is stepped (extent > 1),
+    a positive stride of a multiple of 16 bytes."""
+    return t.data_ptr() % 16 == 0 and all(
+        n == 1 or (s > 0 and s % 8 == 0)
+        for n, s in zip(t.shape[:3], t.stride()[:3]))
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -71,7 +76,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, Sq, H, hd) tensor, so the model's head merge is free."""
     _check(q, k, v)
     if q.dtype == torch.bfloat16:
-        q, k, v = (t if _rows_aligned(t)
+        q, k, v = (t if tma_addressable(t)
                    else t.clone(memory_format=torch.contiguous_format)
                    for t in (q, k, v))
     b, h, sq, hd = q.shape

@@ -110,12 +110,36 @@ def test_maxpool_kernel_matches_plain_version(dtype):
     fill = 0 if dtype == torch.uint8 else (
         torch.iinfo(dtype).min if not dtype.is_floating_point else -1.0)
     cases.append(torch.full((6, 7), fill, dtype=dtype, device="cuda"))
+    # The edges of the kernel's tiles (32 rows by 32 16-byte vectors of
+    # VEC values), batches, views whose base is not 16-byte aligned, signed
+    # zeros.  Widths that are a multiple of VEC take the 16-byte loads and
+    # stores: batches of them, and 4096 + VEC, whose last vector ends
+    # inside a tile.
+    vec = 16 // dtype.itemsize
+    cases += [_image(dtype, shape, 7, levels=3)
+              for shape in ((4095, 4097), (33, 129), (1, 4097),
+                            (3, 33, 129), (3, 33, 128), (2, 40, 4096),
+                            (33, 4096 + vec))]
+    cases.append(_image(dtype, (41, 67), 8, levels=3)[1:])
+    cases.append(_image(dtype, (1 + 40 * 64,), 10, levels=3)[1:]
+                 .view(40, 64))
+    for shape in ((37, 130), (37, 128)):
+        zeros = np.random.default_rng(9).choice([0.0, -0.0, 1.0, -1.0],
+                                                size=shape)
+        cases.append(torch.from_numpy(zeros.astype(np.float32)).to(dtype)
+                     .cuda() if dtype.is_floating_point else
+                     _image(dtype, shape, 9, levels=3))
     for x in cases:
         kv, ka = kmp.maxargmaxpool3x3(x)
         rv, ra = rmp.maxargmaxpool3x3(x)
         assert torch.equal(kv, rv) and torch.equal(ka, ra), x.shape
         assert torch.equal(kmp.maxpool3x3(x), rmp.maxpool3x3(x))
         assert torch.equal(kmp.minpool3x3(x), rmp.minpool3x3(x))
+        if dtype.is_floating_point:            # -0.0 pools below +0.0
+            for got, want in ((kv, rv),
+                              (kmp.maxpool3x3(x), rmp.maxpool3x3(x)),
+                              (kmp.minpool3x3(x), rmp.minpool3x3(x))):
+                assert torch.equal(torch.signbit(got), torch.signbit(want))
 
 
 @pytest.mark.cuda
@@ -176,9 +200,12 @@ def test_engine_paths_launch_the_new_kernels():
                                        (torch.bfloat16, 2e-2)])
 def test_flash_attention_kernel_matches_plain_version(dtype, tol):
     """GQA 32/8, MQA, MHA, a window, non-causal, ragged Sq != Skv, rows
-    with no visible key, hd 64/128/256; the working type's tolerance
-    (float32 without TF32: the plain version's einsums run in full
-    float32)."""
+    with no visible key, hd 64/128/256, and the edges of the bfloat16
+    kernel's tiles (128 query rows, 128 keys or 64 at hd 256: the 1032
+    teacher-forced tokens, Skv 129 and 191, Sq one row into a tile, window
+    edges inside a tile, hd 64 and 256 at a 128-row tile); the working
+    type's tolerance (float32 without TF32: the plain version's einsums
+    run in full float32)."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(0)
@@ -188,7 +215,15 @@ def test_flash_attention_kernel_matches_plain_version(dtype, tol):
             (2, 4, 4, 130, 130, 256, False, None),
             (1, 4, 2, 256, 256, 64, True, 100),
             (1, 4, 2, 70, 150, 128, False, None),
-            (1, 2, 2, 8, 4, 64, True, 2)):
+            (1, 2, 2, 8, 4, 64, True, 2),
+            (1, 32, 8, 1032, 1032, 128, True, None),
+            (1, 4, 2, 100, 129, 128, False, None),
+            (1, 4, 2, 191, 191, 128, True, None),
+            (1, 4, 2, 129, 129, 128, True, None),
+            (1, 4, 2, 300, 300, 128, True, 70),
+            (1, 4, 1, 129, 129, 64, True, None),
+            (1, 4, 1, 129, 129, 256, True, None),
+            (1, 4, 2, 256, 256, 256, True, 70)):
         q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
                    .to(dtype).cuda() for s in ((b, h, sq, hd),
                                                (b, kv, skv, hd),

@@ -129,3 +129,39 @@ def test_kernel_wrapper_takes_only_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernel.flash_attention_fwd(q, k, v)
     assert kernel.LIBRARY.launches == 0
+
+
+def _bf16(shape, offset=0):
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=torch.bfloat16)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("view,addressable", [
+    ("contiguous", True),
+    ("transposed (B, S, H, hd)", True),
+    ("one KV head of a packed qkv", True),
+    ("base off by one element", False),
+    ("row stride of 132 elements", False),
+    ("expanded heads", False),
+    ("odd stride on an extent-1 dim", True),
+])
+def test_tma_addressable_on_strided_views(view, addressable):
+    """Which bfloat16 views the kernel's TMA loads read in place (a
+    16-byte aligned base, and every stepped dim's stride a positive
+    multiple of 16 bytes); the wrapper copies the others.  No launch."""
+    b, h, s, hd = 2, 4, 8, 128
+    t = {
+        "contiguous": lambda: _bf16((b, h, s, hd)),
+        "transposed (B, S, H, hd)": lambda: _bf16((b, s, h, hd)
+                                                  ).transpose(1, 2),
+        "one KV head of a packed qkv": lambda: _bf16((b, s, 3 * h, hd))[
+            :, :, h:2 * h].transpose(1, 2),
+        "base off by one element": lambda: _bf16((b, h, s, hd), offset=1),
+        "row stride of 132 elements": lambda: _bf16((b, h, s, hd + 4))[
+            ..., :hd],
+        "expanded heads": lambda: _bf16((b, 1, s, hd)).expand(b, h, s, hd),
+        "odd stride on an extent-1 dim": lambda: torch.as_strided(
+            _bf16((1, h, s, hd)), (1, h, s, hd), (7, s * hd, hd, 1)),
+    }[view]()
+    assert kernel.tma_addressable(t) is addressable
+    assert kernel.LIBRARY.launches == 0

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from _torch_parity import (DTYPES, assert_same, assert_same_diagram,
+from _torch_parity import (DTYPES, assert_same, assert_same_diagram, host,
                            make_image, to_jax, to_torch)
 from repro.core import num_candidates as jnum_candidates
 from repro.core import pixhomology as jpixhomology
@@ -152,3 +152,110 @@ def test_paper_mode_fused_phase_a_and_num_candidates(phase_a_impl):
                       phase_a_impl=phase_a_impl, candidate_mode="paper",
                       merge_impl="boruvka", filtration="sublevel")
     assert_same_diagram(want, got, f"paper sublevel {phase_a_impl}")
+
+
+def _greater(a, b):
+    """``a > b`` with ``-0.0`` below ``+0.0``."""
+    gt = a > b
+    if a.dtype.is_floating_point:
+        gt = gt | ((a == b) & torch.signbit(b) & ~torch.signbit(a))
+    return gt
+
+
+def _shifted(t, dr, dc):
+    """``t[..., r + dr, c + dc]`` at (r, c), and where that cell lies in
+    the image (elsewhere the value is an arbitrary 0, never compared)."""
+    h, w = t.shape[-2:]
+    out = torch.zeros_like(t)
+    ok = torch.zeros((h, w), dtype=torch.bool)
+    dst = (slice(max(0, -dr), h - max(0, dr)),
+           slice(max(0, -dc), w - max(0, dc)))
+    src = (slice(max(0, dr), h - max(0, -dr)),
+           slice(max(0, dc), w - max(0, -dc)))
+    out[(..., *dst)] = t[(..., *src)]
+    ok[dst] = True
+    return out, ok
+
+
+def _separable_pools(x, minimum):
+    """The CUDA kernel's two passes (``csrc/maxpool.cu``) in Python:
+    per column the best of rows r-1, r, r+1, ties of the argmax going to
+    the larger row; then per output the best of columns c-1, c, c+1, the
+    argmax comparing (value, flat index).  Out-of-image cells are skipped
+    by position.  Returns (pooled value, argmax flat index)."""
+    h, w = x.shape[-2:]
+    rows = torch.arange(h).reshape(h, 1).expand(h, w)
+    cols = torch.arange(w).reshape(1, w).expand(h, w)
+
+    def beats(a, b):
+        return _greater(b, a) if minimum else _greater(a, b)
+
+    pool, arg, row = x, x, rows.expand(x.shape)
+    for dr in (-1, 1):                          # vertical pass
+        v, ok = _shifted(x, dr, 0)
+        pool = torch.where(ok & beats(v, pool), v, pool)
+        wins = ok & ((v > arg) if dr < 0 else (v >= arg))
+        arg = torch.where(wins, v, arg)
+        row = torch.where(wins, rows + dr, row)
+    out, best, idx = pool, arg, row * w + cols
+    for dc in (-1, 1):                          # horizontal pass
+        (p, ok), (a, _), (r, _) = (_shifted(t, 0, dc)
+                                   for t in (pool, arg, row))
+        i = r * w + cols + dc
+        out = torch.where(ok & beats(p, out), p, out)
+        wins = ok & ((a > best) | ((a == best) & (i > idx)))
+        best = torch.where(wins, a, best)
+        idx = torch.where(wins, i, idx)
+    return out, idx.to(torch.int32)
+
+
+def _pool_case(dtype, case):
+    rng = np.random.default_rng(11)
+    if case == "ties":
+        img = make_image(dtype, "ties", seed=12, shape=(9, 14))
+    elif case == "signed_zeros":
+        img = rng.choice([0.0, -0.0, 1.0, -1.0], size=(8, 11))
+        img = img.astype(np.float32 if dtype in ("float32", "bfloat16")
+                         else dtype)
+    elif case == "fill_border":
+        fill = (np.iinfo(dtype).min if dtype in ("uint8", "int16", "int32")
+                else -np.inf)
+        img = np.array(make_image(dtype, "ties", seed=13, shape=(7, 10)))
+        img[0, :] = img[-1, :] = img[:, 0] = img[:, -1] = fill
+    else:                                       # a batch of three images
+        img = np.stack([make_image(dtype, kind, seed=14, shape=(6, 9))
+                        for kind in ("gauss", "ties", "negative")])
+    return img
+
+
+@pytest.mark.parametrize("case", ["ties", "signed_zeros", "fill_border",
+                                  "batch"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_separable_passes_equal_plain_pools(dtype, case):
+    """The kernel's separable order gives the plain pools bit for bit:
+    heavy ties (a tied cell at row r+1 of the left column beats one at row
+    r of the right column), signed zeros (-0.0 pools below +0.0, the
+    argmax ties them), borders equal to the pad fill, batches; against
+    the port's plain pools and the JAX package's."""
+    img = _pool_case(dtype, case)
+    x = to_torch(img, dtype)
+    want_v, want_a = ref.maxargmaxpool3x3(x)
+    got_v, got_a = _separable_pools(x, minimum=False)
+    min_v, _ = _separable_pools(x, minimum=True)
+    for got, want in ((got_v, want_v), (got_a, want_a),
+                      (got_v, ref.maxpool3x3(x)),
+                      (min_v, ref.minpool3x3(x))):
+        assert got.dtype == want.dtype and torch.equal(got, want), case
+        if got.dtype.is_floating_point:
+            assert torch.equal(torch.signbit(got), torch.signbit(want))
+    h, w = img.shape[-2:]                       # the JAX pools take 2-D
+    for i, im in enumerate(img.reshape(-1, h, w)):
+        xj = to_jax(im, dtype)
+        jv, ja = jref.maxargmaxpool3x3(xj)
+        for got, want in ((got_v, jv), (got_a, ja),
+                          (got_v, jref.maxpool3x3(xj)),
+                          (min_v, jref.minpool3x3(xj))):
+            got = got.reshape(-1, h, w)[i]
+            assert_same(want, got, f"{dtype} {case} vs the JAX package")
+            np.testing.assert_array_equal(np.signbit(host(want)),
+                                          np.signbit(host(got)))
