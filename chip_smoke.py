@@ -9,7 +9,8 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 2. build   — the five CUDA kernels built from
              ``src/repro_torch/kernels/*/csrc`` with one ``nvcc`` per source,
              started together; ptxas's registers, shared memory and spills
-             for each instantiation of the flash and maxpool kernels;
+             for each kernel of the flash, maxpool, distance and best-edge
+             libraries;
 3. phase_a — the phase-A kernel against its plain version, bitwise, over the
              five dtypes, strip heights 1/8/16, ragged strips, a ramp, a
              constant image, a wide image and the 4096² astro frame; timed
@@ -30,7 +31,11 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
              must be > 0), and bitwise equality with the plain-version run;
 6. best_edge — the best-edge kernel against its plain version, bitwise, on
              int32/int64 tie storms, all-dead edges, the full capacities of
-             the 4096² run, and the main path's own first-round instance;
+             the 4096² run, around its 16-byte vectors (E of 1 to 33,
+             ``key[1:]`` views, all-live and all-dead instances, keys at
+             ``iinfo.min + 1``), and the main path's own first-round
+             instance; timed on that instance in turns with
+             ``scatter_reduce_`` (one call's time and device time);
 7. paper   — the paper's Algorithm 1 (``phase_a_impl="pooled"``,
              ``candidate_mode="paper"``, Boruvka-fused, ``filter_std``)
              through ``run`` on the same frame: maxpool and best-edge
@@ -44,7 +49,11 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 10. distance — ``distance_matrix`` over the rows of the mixed batch
              (``n_dirs=16``): distance-kernel launches > 0, the kernel
              against its plain version (bn bitwise, sw at rtol 1e-5),
-             exact symmetry and zero diagonal; timed against its bound;
+             exact symmetry and zero diagonal, there and at F of 1, 4095,
+             4097, 65,536 and 131,072 (the path for rows wider than one
+             cluster) with B of 1, 2 and 17 (pad-heavy rows, ties, signed
+             zeros); timed against its bound (one call's time, device
+             time, and its sort and merge stages' device time);
 11. oracle — at 256² (an astro frame, random uint8, random bfloat16) the port
              on the card equals the numpy union-find oracle for the scan,
              Boruvka-xla and Boruvka-fused merges;
@@ -71,8 +80,13 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
              launches, the loss equal to the plain-attention run's within
              ``LOSS_ATOL``, which the hidden-tile control must miss.
 
-Then it prints the kernel table as one JSON line, the nvidia-smi line, and
-last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
+Every kernel is timed two ways: ``ms`` is one call's CUDA-event time
+(``cuda_ms``: the host's launch overhead falls inside the interval when it
+is longer than the kernel), ``device_ms`` the card's own time
+(``device_ms``: calls queued behind a device-side sleep); ``bound_share``
+is the bound over ``device_ms``.  Then it prints the kernel table as one
+JSON line (both times for all five kernels, and for their library calls),
+the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -97,6 +111,9 @@ ORACLE_SIZE = 256
 MIXED_SHAPES = ((2048, 2048), (2048, 1536), (1536, 1536), (1024, 2048),
                 (1000, 1800))
 N_DIRS = 16
+# The main path's engine configuration (phases 5-10).
+MAIN_CONFIG = dict(merge_impl="boruvka", phase_c_impl="fused",
+                   filter_level="filter_std")
 BF16_OPS_PER_S = 989e12          # H100 SXM bfloat16 tensor cores, dense
 # flash_attention cases (B, H, KV, Sq, Skv, hd, causal, window): the six of
 # tests/test_kernels_flash_attention.py, then the LM's GQA 32/8 at hd 128
@@ -148,9 +165,24 @@ TEACHER_STEPS = 8
 LOGIT_ATOL, LOGIT_RTOL = 0.25, 0.05
 LOSS_ATOL = 5e-4                 # mean cross-entropy over 4096 tokens
 CONTROL_KEYS = slice(320, 384)   # the sixth 64-key tile
-# The design of each of the two redesigned kernels.
+# The design of each redesigned kernel (PR 14: maxpool, flash; PR 15:
+# distance, best-edge).
 DESIGN = {"maxpool3x3": "tiled separable 3x3, 16-byte vectors",
-          "flash_attention": "warp-specialised wgmma + TMA pipeline"}
+          "flash_attention": "warp-specialised wgmma + TMA pipeline",
+          "ph_distance": "cluster radix sort in distributed shared memory, "
+                         "then a tiled merge path from shared memory",
+          "ph_phase_c_best_edge": "one 16-byte-vector read of the keys, "
+                                  "a compact live list for the win pass"}
+
+
+def survey_frames() -> list:
+    """The mixed_batch phase's survey batch: windows of 2048² frames of
+    ``MIXED_SHAPES``, then an exact duplicate of the third."""
+    from repro_torch.data import astro
+    survey = [astro.generate_window(i, 0, 0, h, w, size=BATCH_SIZE)
+              for i, (h, w) in enumerate(MIXED_SHAPES, start=10)]
+    survey.append(survey[2].copy())
+    return survey
 
 
 def emit(phase: str, **fields) -> None:
@@ -174,6 +206,26 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls queued behind a
+    device-side sleep, so that the card runs them back to back and the
+    host's launch overhead (tens of microseconds a call through the ctypes
+    wrappers: compare ``cuda_ms``) stays out of the interval; CUDA events
+    around the calls, divided by ``reps``."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)       # ~50 ms: longer than the enqueue
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def max_abs_diff(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() \
         else 0.0
@@ -181,13 +233,17 @@ def max_abs_diff(a, b) -> float:
 
 def in_turns(kernel_fn, library_fn) -> dict:
     """A kernel and its library call timed in turns (kernel, library,
-    library, kernel; each a ``cuda_ms`` median), so that both see the
-    same card state; ``ms`` and ``library_ms`` are the means of each
-    pair."""
-    k1, l1, l2, k2 = (cuda_ms(fn) for fn in (kernel_fn, library_fn,
-                                             library_fn, kernel_fn))
-    return {"turns_ms": {"kernel": [k1, k2], "library": [l1, l2]},
-            "ms": (k1 + k2) / 2, "library_ms": (l1 + l2) / 2}
+    library, kernel), so that both see the same card state: first one
+    call's time (``cuda_ms``), then device time (``device_ms``).  ``ms``,
+    ``library_ms``, ``device_ms`` and ``library_device_ms`` are the means
+    of each pair; ``turns_ms`` and ``turns_device_ms`` hold the four."""
+    out = {}
+    for timer, key in ((cuda_ms, "ms"), (device_ms, "device_ms")):
+        k1, l1, l2, k2 = (timer(fn) for fn in (kernel_fn, library_fn,
+                                               library_fn, kernel_fn))
+        out[f"turns_{key}"] = {"kernel": [k1, k2], "library": [l1, l2]}
+        out[key], out[f"library_{key}"] = (k1 + k2) / 2, (l1 + l2) / 2
+    return out
 
 
 def ptxas_report(lib) -> dict | None:
@@ -233,6 +289,116 @@ def sass_counts(lib) -> dict:
                           capture_output=True, text=True, check=True).stdout
     return {op: len(re.findall(rf"\b{op}\b", sass))
             for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+
+
+def best_edge_cases(dev, rng, err) -> int:
+    """The best-edge kernel against its plain version, bitwise, around its
+    16-byte vectors: E from 1 to 33, views whose base is not 16-byte
+    aligned (``key[1:]``), all-dead, all-live and tie-storm instances and
+    keys at ``iinfo.min + 1``, in int32 and int64.  Returns the count."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ph_phase_c import kernel as kc
+    from repro_torch.kernels.ph_phase_c import ref as rc
+
+    def check(key, ra_, rb_, nv, label):
+        b_k, w_k = kc.best_edge_reduce(key, ra_, rb_, nv)
+        b_r, w_r = rc.best_edge_reduce(key, ra_, rb_, nv)
+        err["ph_phase_c"] = max(err["ph_phase_c"], max_abs_diff(b_k, b_r),
+                                max_abs_diff(w_k, w_r))
+        if not (torch.equal(b_k, b_r) and torch.equal(w_k, w_r)):
+            raise AssertionError(f"best_edge kernel != plain on {label}")
+
+    def instance(e, nv, dtype, dead, keys):
+        lo = torch.iinfo(dtype).min
+        key = torch.from_numpy(rng.choice(np.asarray(keys, np.int64), e))
+        key = torch.where(torch.from_numpy(rng.random(e) < dead), lo, key)
+        ends = [torch.from_numpy(rng.integers(0, nv, size=e)
+                                 .astype(np.int32)) for _ in range(2)]
+        return key.to(dtype).to(dev), ends[0].to(dev), ends[1].to(dev)
+
+    n = 0
+    for dtype in (torch.int32, torch.int64):
+        lo = torch.iinfo(dtype).min
+        storm = (lo + 1, lo + 2, -1, 0, 3)
+        wide = tuple(range(-50, 50))
+        for e in range(1, 34):
+            for dead, keys in ((0.3, storm), (0.0, storm), (1.0, wide),
+                               (0.5, wide)):
+                nv = 1 + e % 5
+                # One lane more, then the view from lane 1: its base is
+                # 4 or 8 bytes past a 16-byte boundary.
+                key, ra_, rb_ = instance(e + 1, nv, dtype, dead, keys)
+                check(key[:e], ra_[:e], rb_[:e], nv, f"{dtype} E={e} "
+                      f"dead={dead}")
+                check(key[1:], ra_[1:], rb_[1:], nv, f"{dtype} E={e} "
+                      f"dead={dead} view key[1:]")
+                n += 2
+        for e, nv, dead, keys in ((4099, 7, 0.0, (lo + 1,)),
+                                  (100_001, 300, 0.0, storm),
+                                  (100_001, 300, 1.0, storm),
+                                  (1 << 20, 4096, 0.98, wide)):
+            key, ra_, rb_ = instance(e, nv, dtype, dead, keys)
+            check(key, ra_, rb_, nv, f"{dtype} E={e} dead={dead}")
+            check(key[1:], ra_[1:], rb_[1:], nv,
+                  f"{dtype} E={e} dead={dead} view key[1:]")
+            n += 2
+    return n
+
+
+def distance_cases(dev, rng, err) -> int:
+    """The distance kernel against its plain version (bn bitwise, sw at
+    rtol 1e-5, exact symmetry, zero diagonal, a twin row at exactly 0)
+    at F of 1, 4095, 4097, 65,536 and 131,072 (wider than one cluster:
+    the wide path) and B of 1, 2 and 17.  Rows take turns among Gaussian
+    values, pad-heavy rows (90 % zeros, as capacity pads project), heavy
+    ties and signed zeros.  Returns the count."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ph_distance import kernel as kd
+    from repro_torch.kernels.ph_distance import ref as rd
+
+    def table(b, k, f):
+        x = rng.normal(size=(b, k, f)) * 50
+        mode = (np.arange(b)[:, None] + np.arange(k)[None, :]) % 4
+        pads = rng.random((b, k, f)) < 0.9
+        x = np.where((mode[..., None] == 1) & pads, 0.0, x)
+        x = np.where(mode[..., None] == 2, np.round(x / 40), x)
+        zeros = rng.choice([0.0, -0.0, 1.5, -1.5], size=(b, k, f))
+        x = np.where(mode[..., None] == 3, zeros, x)
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    n = 0
+    for f in (1, 4095, 4097, 65536, 131072):
+        for b in (1, 2, 17):
+            k = 16 if b * f <= 1 << 18 else 2
+            pts, diag = table(b, k, f), table(b, k, f)
+            prof = table(b, 1, f)[:, 0].abs().sort(dim=1, descending=True
+                                                   ).values.contiguous()
+            if b > 1:                      # a twin row: exactly 0 apart
+                pts[-1], diag[-1], prof[-1] = pts[0], diag[0], prof[0]
+            ksw, kbn = kd.distance_matrix(pts, diag, prof)
+            rsw, rbn = rd.distance_matrix(pts, diag, prof)
+            label = f"B={b} K={k} F={f}"
+            err["ph_distance"] = max(err["ph_distance"],
+                                     max_abs_diff(ksw, rsw),
+                                     max_abs_diff(kbn, rbn))
+            if not torch.equal(kbn, rbn):
+                raise AssertionError(f"distance bn != plain on {label}")
+            if not torch.allclose(ksw, rsw, rtol=1e-5, atol=0.0):
+                raise AssertionError(f"distance sw != plain within rtol "
+                                     f"1e-5 on {label}")
+            if not (torch.equal(ksw, ksw.T) and torch.equal(kbn, kbn.T)
+                    and not ksw.diagonal().any()
+                    and not kbn.diagonal().any()):
+                raise AssertionError(f"distance not exactly symmetric with "
+                                     f"a zero diagonal on {label}")
+            if b > 1 and (ksw[0, b - 1] != 0 or kbn[0, b - 1] != 0):
+                raise AssertionError(f"twin rows apart on {label}")
+            n += 1
+    return n
 
 
 def phase_flash_attention(dev, rng, err) -> dict:
@@ -308,11 +474,15 @@ def phase_flash_attention(dev, rng, err) -> dict:
          main_shapes=[list(t) for t in FLASH_MAIN_SHAPES],
          main_shape_max_abs_err=main_errs, timed_shape=list(
              FLASH_SHAPE), timed_dtype="bfloat16", causal=True,
-         kernel_ms=ms, plain_ms=plain_ms, library_ms_sdpa=lib_ms,
-         turns_ms=timed["turns_ms"], flop=ops, bytes=nbytes,
-         bound_ms=bound_ms, bound_by=bound_by, sass=sass)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms, "sass": sass}
+         kernel_ms=ms, device_ms=timed["device_ms"], plain_ms=plain_ms,
+         library_ms_sdpa=lib_ms,
+         library_device_ms=timed["library_device_ms"],
+         turns_ms=timed["turns_ms"], turns_device_ms=timed["turns_device_ms"],
+         flop=ops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+         bound_share=bound_ms / timed["device_ms"], sass=sass)
+    return {"ms": ms, "device_ms": timed["device_ms"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "library_device_ms": timed["library_device_ms"], "sass": sass}
 
 
 def device_profile(fn) -> dict:
@@ -628,7 +798,8 @@ def main() -> int:
          libraries=[str(lib.library_path().relative_to(ROOT))
                     for lib in libraries.values()],
          ptxas={name: ptxas_report(libraries[name])
-                for name in ("flash_attention", "maxpool")},
+                for name in ("flash_attention", "maxpool", "ph_distance",
+                             "ph_phase_c")},
          ptxas_note="flash_fwd_wgmma_kernel's registers are its launch "
                     "share; setmaxnreg leaves the producer warpgroup 24 and "
                     "gives each consumer warpgroup 240")
@@ -680,12 +851,14 @@ def main() -> int:
     n_cases += 5
     n = MAIN_SIZE * MAIN_SIZE
     a_ms = cuda_ms(lambda: ka.phase_a(x_main, strip_rows=8))
+    a_dev_ms = device_ms(lambda: ka.phase_a(x_main, strip_rows=8))
     a_plain_ms = cuda_ms(lambda: ra.phase_a(x_main, strip_rows=8))
     a_bytes = n * (4 + 4 + 4)            # read f32 image, write ptr + mask
     a_bound_ms = a_bytes / HBM_BYTES_PER_S * 1e3
     emit("phase_a", cases=n_cases, bitwise_equal=True, shape=[MAIN_SIZE] * 2,
-         dtype="float32", strip_rows=8, kernel_ms=a_ms, plain_ms=a_plain_ms,
-         bound_ms=a_bound_ms)
+         dtype="float32", strip_rows=8, kernel_ms=a_ms, device_ms=a_dev_ms,
+         plain_ms=a_plain_ms, bound_ms=a_bound_ms,
+         bound_share=a_bound_ms / a_dev_ms)
 
     # -- 4. maxpool kernel vs plain ----------------------------------------
     def check_pool(x: torch.Tensor, label: str) -> None:
@@ -754,18 +927,21 @@ def main() -> int:
                        lambda: torch.nn.functional.max_pool2d(
                            x4, 3, 1, 1, return_indices=True))
     p_ms, p_lib_ms = p_timed["ms"], p_timed["library_ms"]
+    p_dev_ms = p_timed["device_ms"]
     p_bytes = n * (4 + 4 + 4)            # read f32 image, write value + arg
     p_bound_ms = p_bytes / HBM_BYTES_PER_S * 1e3
     emit("maxpool", cases=n_pool, bitwise_equal=True,
          shape=[MAIN_SIZE] * 2, dtype="float32", kernel_ms=p_ms,
-         plain_ms=p_plain_ms, library_ms_max_pool2d_indices=p_lib_ms,
-         turns_ms=p_timed["turns_ms"], bound_ms=p_bound_ms,
-         bound_share=p_bound_ms / p_ms)
+         device_ms=p_dev_ms, plain_ms=p_plain_ms,
+         library_ms_max_pool2d_indices=p_lib_ms,
+         library_device_ms=p_timed["library_device_ms"],
+         turns_ms=p_timed["turns_ms"],
+         turns_device_ms=p_timed["turns_device_ms"], bound_ms=p_bound_ms,
+         bound_share=p_bound_ms / p_dev_ms)
 
     # -- 5. main path (drives the kernels; its first best-edge round is
     #       captured for the best-edge timing below) --------------------------
-    cfg = PHConfig(merge_impl="boruvka", phase_c_impl="fused",
-                   filter_level="filter_std")
+    cfg = PHConfig(**MAIN_CONFIG)
     engine = PHEngine(cfg)                      # device left at its default
     reset_counts()
     t0 = time.perf_counter()
@@ -896,10 +1072,10 @@ def main() -> int:
             check_best(*instance(e, nv, dtype, dead, ks),
                        f"{dtype} E={e} nv={nv} dead={dead}")
             n_best += 1
+    n_best += best_edge_cases(dev, rng, err)
     key, ra_, rb_, nv = captured[0]
     check_best(key, ra_, rb_, nv, "main-path round 1")
     n_best += 1
-    e_ms = cuda_ms(lambda: kc.best_edge_reduce(key, ra_, rb_, nv))
     e_plain_ms = cuda_ms(lambda: rc.best_edge_reduce(key, ra_, rb_, nv))
     pad = key_pad(key.dtype)
     alive = key > pad
@@ -909,17 +1085,30 @@ def main() -> int:
                          torch.where(alive, rb_, drop)]).long()
     lib_src = torch.cat([key, key])
     lib_best = torch.full((nv + 1,), pad, dtype=key.dtype, device=dev)
-    e_lib_ms = cuda_ms(lambda: lib_best.scatter_reduce_(0, lib_idx, lib_src,
+    e_timed = in_turns(lambda: kc.best_edge_reduce(key, ra_, rb_, nv),
+                       lambda: lib_best.scatter_reduce_(0, lib_idx, lib_src,
                                                         "amax"))
+    e_ms, e_dev_ms = e_timed["ms"], e_timed["device_ms"]
+    e_lib_ms = e_timed["library_ms"]
     kb = key.element_size()
     # Every key read once, the endpoints of live edges once, both tables
     # written once.
     e_bytes = key.numel() * kb + live * 8 + nv * (kb + 4)
     e_bound_ms = e_bytes / HBM_BYTES_PER_S * 1e3
+    # What the kernel reads by its design: every key once (16-byte
+    # vectors), the endpoints of live edges in pass 1, then per list entry
+    # the index, its key, its endpoints and both ends' best.
+    e_read = key.numel() * kb + live * (8 + 4 + kb + 8 + 2 * kb)
     emit("best_edge", cases=n_best, bitwise_equal=True, edges=key.numel(),
          live_edges=live, nv=nv, key_dtype=str(key.dtype),
-         kernel_ms=e_ms, plain_ms=e_plain_ms,
-         library_ms_scatter_reduce_amax=e_lib_ms, bound_ms=e_bound_ms)
+         kernel_ms=e_ms, device_ms=e_dev_ms, plain_ms=e_plain_ms,
+         library_ms_scatter_reduce_amax=e_lib_ms,
+         library_device_ms=e_timed["library_device_ms"],
+         turns_ms=e_timed["turns_ms"],
+         turns_device_ms=e_timed["turns_device_ms"], bound_ms=e_bound_ms,
+         bound_share=e_bound_ms / e_dev_ms, read_bytes=e_read,
+         read_tb_per_s=e_read / e_dev_ms / 1e9, design=DESIGN[
+             "ph_phase_c_best_edge"])
 
     # -- 7. paper: the paper's pooled Algorithm 1 through run() -------------
     paper_cfg = cfg.replace(phase_a_impl="pooled", candidate_mode="paper")
@@ -990,9 +1179,7 @@ def main() -> int:
          equals_single_runs=True)
 
     # -- 9. mixed_batch: a survey batch of mixed shapes, one bucket ---------
-    survey = [astro.generate_window(i, 0, 0, h, w, size=BATCH_SIZE)
-              for i, (h, w) in enumerate(MIXED_SHAPES, start=10)]
-    survey.append(survey[2].copy())             # an exact duplicate
+    survey = survey_frames()
     twin, twin_of = len(survey) - 1, 2
     mixed = PHEngine(cfg)
     reset_counts()
@@ -1082,7 +1269,8 @@ def main() -> int:
     if not (torch.equal(ksw, sw) and torch.equal(kbn, bn)):
         raise AssertionError("distance kernel on the prepared tables != the "
                              "engine's matrices")
-    err["ph_distance"] = max(max_abs_diff(ksw, rsw), max_abs_diff(kbn, rbn))
+    err["ph_distance"] = max(err["ph_distance"], max_abs_diff(ksw, rsw),
+                             max_abs_diff(kbn, rbn))
     if not torch.equal(kbn, rbn):
         raise AssertionError("distance kernel bn != plain version")
     sw_rel = float(((ksw.double() - rsw.double()).abs()
@@ -1090,7 +1278,16 @@ def main() -> int:
     if not torch.allclose(ksw, rsw, rtol=1e-5, atol=0.0):
         raise AssertionError(f"distance kernel sw != plain version within "
                              f"rtol 1e-5 (max rel {sw_rel})")
+    n_dist = 1 + distance_cases(dev, rng, err)
     d_ms = cuda_ms(lambda: kd.distance_matrix(pts, dirs, prof))
+    d_dev_ms = device_ms(lambda: kd.distance_matrix(pts, dirs, prof))
+    # The kernel's two stages, each timed on its own on shared scratch.
+    d_sort, d_pairs = kd.stages(pts, dirs, prof)
+    d_sort()
+    if not all(torch.equal(a, b) for a, b in zip(d_pairs(), (ksw, kbn))):
+        raise AssertionError("distance kernel's stages != the whole kernel")
+    d_sort_ms = device_ms(d_sort)
+    d_merge_ms = device_ms(d_pairs)
     d_plain_ms = cuda_ms(lambda: rd.distance_matrix(pts, dirs, prof), reps=3)
     b_rows, k_dirs, f_cap = pts.shape
     d_bytes = (2 * b_rows * k_dirs * f_cap + b_rows * f_cap
@@ -1101,8 +1298,11 @@ def main() -> int:
         d_ops / FP32_OPS_PER_S else "operations"
     emit("distance", rows=b_rows, n_dirs=k_dirs, capacity=f_cap,
          engine_wall_ms=dist_ms, stack_ms=stack_ms, projections_ms=proj_ms,
-         profiles_ms=prof_ms, launches=dist_launches, kernel_ms=d_ms,
-         plain_ms=d_plain_ms, bound_ms=d_bound_ms, bound_by=d_bound_by,
+         profiles_ms=prof_ms, launches=dist_launches, cases=n_dist,
+         kernel_ms=d_ms, device_ms=d_dev_ms, sort_ms=d_sort_ms,
+         merge_ms=d_merge_ms, plain_ms=d_plain_ms, bound_ms=d_bound_ms,
+         bound_by=d_bound_by, bound_share=d_bound_ms / d_dev_ms,
+         design=DESIGN["ph_distance"],
          bn_bitwise_equal=True, sw_max_rel_err=sw_rel,
          symmetric_zero_diagonal=True,
          sw_matrix=sw.cpu().tolist(), bn_matrix=bn.cpu().tolist())
@@ -1146,30 +1346,34 @@ def main() -> int:
          "replaces": "src/repro/kernels/ph_phase_a/kernel.py:52",
          "launches": launches["ph_phase_a"],
          "max_abs_err": err["ph_phase_a"],
-         "ms": a_ms, "plain_ms": a_plain_ms, "bound_ms": a_bound_ms,
-         "bound_by": "bytes", "library_ms": None},
+         "ms": a_ms, "device_ms": a_dev_ms, "plain_ms": a_plain_ms,
+         "bound_ms": a_bound_ms, "bound_by": "bytes", "library_ms": None},
         {"name": "ph_phase_c_best_edge", "route": "cuda",
          "source": "src/repro_torch/kernels/ph_phase_c/csrc/best_edge.cu",
          "replaces": "src/repro/kernels/ph_phase_c/kernel.py:42",
          "launches": launches["ph_phase_c"],
          "max_abs_err": err["ph_phase_c"],
-         "ms": e_ms, "plain_ms": e_plain_ms, "bound_ms": e_bound_ms,
-         "bound_by": "bytes", "library_ms": e_lib_ms},
+         "ms": e_ms, "device_ms": e_dev_ms, "plain_ms": e_plain_ms,
+         "bound_ms": e_bound_ms, "bound_by": "bytes", "library_ms": e_lib_ms,
+         "library_device_ms": e_timed["library_device_ms"],
+         "design": DESIGN["ph_phase_c_best_edge"]},
         {"name": "maxpool3x3", "route": "cuda",
          "source": "src/repro_torch/kernels/maxpool/csrc/maxpool.cu",
          "replaces": "src/repro/kernels/maxpool/kernel.py:56",
          "launches": paper_launches["maxpool"],
          "max_abs_err": err["maxpool"],
-         "ms": p_ms, "plain_ms": p_plain_ms, "bound_ms": p_bound_ms,
-         "bound_by": "bytes", "library_ms": p_lib_ms,
+         "ms": p_ms, "device_ms": p_dev_ms, "plain_ms": p_plain_ms,
+         "bound_ms": p_bound_ms, "bound_by": "bytes", "library_ms": p_lib_ms,
+         "library_device_ms": p_timed["library_device_ms"],
          "design": DESIGN["maxpool3x3"]},
         {"name": "ph_distance", "route": "cuda",
          "source": "src/repro_torch/kernels/ph_distance/csrc/distance.cu",
          "replaces": "src/repro/kernels/ph_distance/kernel.py:33",
          "launches": dist_launches["ph_distance"],
          "max_abs_err": err["ph_distance"],
-         "ms": d_ms, "plain_ms": d_plain_ms, "bound_ms": d_bound_ms,
-         "bound_by": d_bound_by, "library_ms": None},
+         "ms": d_ms, "device_ms": d_dev_ms, "plain_ms": d_plain_ms,
+         "bound_ms": d_bound_ms, "bound_by": d_bound_by, "library_ms": None,
+         "design": DESIGN["ph_distance"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",

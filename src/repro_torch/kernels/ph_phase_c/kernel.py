@@ -3,9 +3,10 @@
 
 The kernel builds with ``nvcc`` at first use and launches on PyTorch's
 current stream.  The wrapper checks device, dtype, shape and contiguity,
-allocates ``best``/``win`` with ``torch.empty`` (the kernel initializes
-them), and counts its launches in ``LIBRARY.launches`` — one per call,
-i.e. one per Boruvka round on the main path.
+allocates ``best``/``win`` and the scratch with ``torch.empty`` (a
+live-edge list of up to E int32 indices and its device counter, which
+the kernel initializes), and counts its launches in ``LIBRARY.launches``
+— one per call, i.e. one per Boruvka round on the main path.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary(
     Path(__file__).parent / "csrc" / "best_edge.cu",
     {"best_edge_launch": [_I, _P, _P, _P, ctypes.c_longlong, _P, _P, _I,
-                          _P]},
+                          _P, _P, _P]},
     error_fn="best_edge_error_string")
 
 KEY_BITS = {torch.int32: 32, torch.int64: 64}
@@ -50,12 +51,16 @@ def best_edge_reduce(key: torch.Tensor, ra: torch.Tensor, rb: torch.Tensor,
         raise ValueError("best_edge_reduce kernel needs contiguous inputs")
     if key.shape[0] >= 2 ** 31:
         raise ValueError("edge count exceeds int32 edge indices")
-    best = torch.empty(nv, dtype=key.dtype, device=key.device)
-    win = torch.empty(nv, dtype=torch.int32, device=key.device)
-    stream = torch.cuda.current_stream(key.device).cuda_stream
-    with torch.cuda.device(key.device):
+    dev = key.device
+    best = torch.empty(nv, dtype=key.dtype, device=dev)
+    win = torch.empty(nv, dtype=torch.int32, device=dev)
+    live = torch.empty(max(1, key.shape[0]), dtype=torch.int32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
         LIBRARY.call("best_edge_launch", KEY_BITS[key.dtype], key.data_ptr(),
                      ra.data_ptr(), rb.data_ptr(), key.shape[0],
-                     best.data_ptr(), win.data_ptr(), nv, stream)
+                     best.data_ptr(), win.data_ptr(), nv, live.data_ptr(),
+                     count.data_ptr(), stream)
     LIBRARY.launches += 1
     return best, win

@@ -84,6 +84,38 @@ def test_best_edge_kernel_matches_plain_version(key_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("kind", ["tie_storm", "all_dead", "all_live",
+                                  "min_plus_one"])
+def test_best_edge_kernel_around_its_vectors(key_dtype, kind):
+    """E from 1 to 33 around the 16-byte vectors (4 int32 or 2 int64 keys),
+    on the tensor and on the view from lane 1 (a base 4 or 8 bytes past a
+    16-byte boundary), and a large instance of the kind."""
+    _need_cuda()
+    rng = np.random.default_rng(len(kind))
+    lo = torch.iinfo(key_dtype).min
+    keys = {"tie_storm": [lo + 1, -1, 0, 3], "min_plus_one": [lo + 1]}.get(
+        kind, list(range(-40, 40)))
+    dead = {"all_dead": 1.0, "all_live": 0.0}.get(kind, 0.3)
+
+    def instance(e, nv):
+        key = torch.from_numpy(rng.choice(np.asarray(keys, np.int64), e))
+        key = torch.where(torch.from_numpy(rng.random(e) < dead), lo, key)
+        ra_, rb_ = (torch.from_numpy(rng.integers(0, nv, size=e)
+                                     .astype(np.int32)).cuda()
+                    for _ in range(2))
+        return key.to(key_dtype).cuda(), ra_, rb_
+
+    for e, nv in [(e, 1 + e % 5) for e in range(1, 34)] + [(200_001, 999)]:
+        key, ra_, rb_ = instance(e + 1, nv)
+        for view in (slice(0, e), slice(1, e + 1)):
+            args = (key[view], ra_[view], rb_[view], nv)
+            kb, kw = kc.best_edge_reduce(*args)
+            pb, pw = rc.best_edge_reduce(*args)
+            assert torch.equal(kb, pb) and torch.equal(kw, pw), (e, view)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("merge_impl,phase_c_impl",
                          [("scan", "fused"), ("boruvka", "xla"),
                           ("boruvka", "fused")])
@@ -163,6 +195,48 @@ def test_distance_kernel_matches_plain_version():
         assert (ksw.diagonal() == 0).all() and (kbn.diagonal() == 0).all()
         if b > 1:
             assert ksw[0, b - 1] == 0
+
+
+def _distance_tables(rng, b, k, f):
+    """Rows in turn: Gaussian, pad-heavy (90 % zeros, as capacity pads
+    project), heavy ties and signed zeros."""
+    x = rng.normal(size=(b, k, f)) * 50
+    mode = ((np.arange(b)[:, None] + np.arange(k)[None, :]) % 4)[..., None]
+    x = np.where((mode == 1) & (rng.random((b, k, f)) < 0.9), 0.0, x)
+    x = np.where(mode == 2, np.round(x / 40), x)
+    x = np.where(mode == 3, rng.choice([0.0, -0.0, 1.5, -1.5],
+                                       size=(b, k, f)), x)
+    return torch.from_numpy(x.astype(np.float32)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 4095, 4097, 65536, 131072])
+@pytest.mark.parametrize("b", [1, 2, 17])
+def test_distance_kernel_widths_and_batches(f, b):
+    """F around the cluster sort's widths (131,072 takes the path for rows
+    wider than one cluster), B of 1, 2 and 17; a twin row sits at exactly
+    0."""
+    _need_cuda()
+    rng = np.random.default_rng(f + b)
+    k = 16 if b * f <= 1 << 18 else 2
+    pts, diag = _distance_tables(rng, b, k, f), _distance_tables(rng, b, k, f)
+    prof = torch.sort(_distance_tables(rng, b, 1, f)[:, 0].abs(), dim=1,
+                      descending=True).values.contiguous()
+    if b > 1:
+        pts[-1], diag[-1], prof[-1] = pts[0], diag[0], prof[0]
+    ksw, kbn = kd.distance_matrix(pts, diag, prof)
+    rsw, rbn = rd.distance_matrix(pts, diag, prof)
+    assert torch.equal(kbn, rbn)
+    torch.testing.assert_close(ksw, rsw, rtol=1e-5, atol=0)
+    assert torch.equal(ksw, ksw.T) and torch.equal(kbn, kbn.T)
+    assert not ksw.diagonal().any() and not kbn.diagonal().any()
+    if b > 1:
+        assert ksw[0, b - 1] == 0 and kbn[0, b - 1] == 0
+    # Each stage on its own gives the same matrices.
+    sort, pairs = kd.stages(pts, diag, prof)
+    sort()
+    ssw, sbn = pairs()
+    assert torch.equal(ssw, ksw) and torch.equal(sbn, kbn)
 
 
 @pytest.mark.cuda
