@@ -9,12 +9,18 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 2. build   — the five CUDA kernels built from
              ``src/repro_torch/kernels/*/csrc`` with one ``nvcc`` per source,
              started together; ptxas's registers, shared memory and spills
-             for each kernel of the flash, maxpool, distance and best-edge
-             libraries;
-3. phase_a — the phase-A kernel against its plain version, bitwise, over the
-             five dtypes, strip heights 1/8/16, ragged strips, a ramp, a
-             constant image, a wide image and the 4096² astro frame; timed
-             at 4096² float32;
+             for each kernel of the five libraries;
+3. phase_a — the phase-A kernel against its plain version, bitwise
+             (``phase_a_cases``): the five dtypes, strip heights 1/8/16,
+             ragged strips, ramps, a constant image; every width regime
+             and its edges (S * W = 65,536 and a column either side, the
+             widest cluster strip and a column more, widths 10240 and
+             16384) at S = 8 and 16 with deep column ramps, signed zeros,
+             NaN pixels, uint8 zero borders and unaligned views; a
+             bfloat16 tie storm,
+             batches, the mixed batch's 5 x 2048² bucket and the 4096²
+             astro frame; timed at 4096² float32, on the bucket and on a
+             10240² frame (S = 8), each beside its bound;
 4. maxpool — the 3x3 pooling kernel (max+argmax, max, min) against its plain
              version, bitwise (zeros' signs too), over the five dtypes at
              1x1, 1x29, 29x1 and 37x53 (noise, heavy ties, borders equal to
@@ -105,6 +111,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 MAIN_SIZE = 4096
+# A width of the paper's 10240² frames: phase A's strips of it at S = 8
+# take the kernel's cluster regime.
+PHASE_A_WIDE = 10240
 BATCH_SIZE = 2048
 ORACLE_SIZE = 256
 # The survey batch of the mixed_batch phase: (h, w) windows of 2048² frames.
@@ -165,9 +174,12 @@ TEACHER_STEPS = 8
 LOGIT_ATOL, LOGIT_RTOL = 0.25, 0.05
 LOSS_ATOL = 5e-4                 # mean cross-entropy over 4096 tokens
 CONTROL_KEYS = slice(320, 384)   # the sixth 64-key tile
-# The design of each redesigned kernel (PR 14: maxpool, flash; PR 15:
-# distance, best-edge).
-DESIGN = {"maxpool3x3": "tiled separable 3x3, 16-byte vectors",
+# The design of each kernel.
+DESIGN = {"ph_phase_a": "one launch per strip: a 16-byte-vector stencil, "
+                        "16-bit pointers and an escape table in shared "
+                        "memory; wider strips over a cluster's distributed "
+                        "shared memory",
+          "maxpool3x3": "tiled separable 3x3, 16-byte vectors",
           "flash_attention": "warp-specialised wgmma + TMA pipeline",
           "ph_distance": "cluster radix sort in distributed shared memory, "
                          "then a tiled merge path from shared memory",
@@ -289,6 +301,157 @@ def sass_counts(lib) -> dict:
                           capture_output=True, text=True, check=True).stdout
     return {op: len(re.findall(rf"\b{op}\b", sass))
             for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+
+
+def to_device(img, dtype, dev):
+    """A numpy image as a contiguous ``dtype`` tensor on ``dev`` (uint8
+    takes the clipped magnitude)."""
+    import numpy as np
+    import torch
+    if dtype == torch.uint8:
+        img = np.clip(np.abs(img), 0, 255)
+    t = torch.from_numpy(np.ascontiguousarray(img).astype(np.float32))
+    return t.to(dtype).to(dev).contiguous()
+
+
+def survey_bucket(dev):
+    """The mixed_batch phase's one dispatch as phase A sees it: the
+    distinct survey frames padded with the superlevel fill (-inf) into
+    one (5, 2048, 2048) float32 bucket."""
+    import torch
+    from repro_torch.pipeline.padding import pad_image
+    frames = survey_frames()[:len(MIXED_SHAPES)]
+    return torch.stack([pad_image(torch.from_numpy(f),
+                                  (BATCH_SIZE, BATCH_SIZE))
+                        for f in frames]).to(dev)
+
+
+def phase_a_bound_ms(x) -> float:
+    """Phase A's least time on the card: the image read once, ptr and mask
+    (int32) written once, at the device memory rate."""
+    return x.numel() * (x.element_size() + 8) / HBM_BYTES_PER_S * 1e3
+
+
+def column_ramp(h: int, w: int, s: int):
+    """The deepest in-strip chains: values step up by 2s a column, and
+    within a column fall off from each strip's middle row, so every ascent
+    runs to that row and along it to the right edge (a chain of w pixels;
+    exact in float32 and int32 below 2^24)."""
+    import numpy as np
+    r, c = np.mgrid[:h, :w]
+    return (c * 2 * s - np.abs(r % s - s // 2)).astype(np.float64)
+
+
+def check_phase_a(x, s: int, label: str, err) -> None:
+    """The phase-A kernel against its plain version on ``x``, bitwise."""
+    import torch
+    from repro_torch.kernels.ph_phase_a import kernel as ka
+    from repro_torch.kernels.ph_phase_a import ref as ra
+    p_k, m_k = ka.phase_a(x, strip_rows=s)
+    p_r, m_r = ra.phase_a(x, strip_rows=s)
+    err["ph_phase_a"] = max(err["ph_phase_a"], max_abs_diff(p_k, p_r),
+                            max_abs_diff(m_k, m_r))
+    if not (torch.equal(p_k, p_r) and torch.equal(m_k, m_r)):
+        bad = int((p_k != p_r).sum() + (m_k != m_r).sum())
+        raise AssertionError(f"phase_a kernel != plain on {label} "
+                             f"(S={s}): {bad} differing entries")
+
+
+def phase_a_cases(dev, rng, err) -> int:
+    """The phase-A kernel against its plain version, bitwise: the five
+    dtypes on small and degenerate shapes at strip heights 1/8/16, ramps
+    and constant images; then each width regime and its edges (S * W =
+    65,536 and one column either side, the widest strip a cluster holds
+    and one column more, widths 10240 and 16384) at S = 8 and 16, with
+    ragged last strips, column ramps, signed zeros, NaN pixels, uint8
+    zeros at the borders and views whose base is not 16-byte aligned; a
+    bfloat16 tie storm, batches, the mixed batch's (5, 2048, 2048) bucket
+    with its fill padding, and the 4096² astro frame.  Returns the
+    count."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import astro
+    from repro_torch.kernels.ph_phase_a import kernel as ka
+
+    dtypes = (torch.uint8, torch.int16, torch.int32, torch.float32,
+              torch.bfloat16)
+    n = 0
+
+    def check(img, dt, s, label):
+        nonlocal n
+        x = img if isinstance(img, torch.Tensor) else to_device(img, dt, dev)
+        check_phase_a(x, s, f"{label}/{x.dtype}", err)
+        n += 1
+
+    def signed_zeros(shape, dt):
+        z = rng.choice([0.0, -0.0, 1.0, -1.0], size=shape).astype(np.float32)
+        return torch.from_numpy(z).to(dt).to(dev)
+
+    for dt in dtypes:
+        for shape in ((37, 53), (64, 64), (1, 29), (29, 1), (1, 1)):
+            gauss = rng.normal(size=shape) * 40
+            ties = rng.integers(0, 3, size=shape).astype(np.float64)
+            for kind, img in (("gauss", gauss), ("ties", ties)):
+                for s in (1, 8, 16):
+                    check(img, dt, s, f"{kind}{shape}")
+        ramp = np.tile(np.arange(4096, dtype=np.float64) % 200, (24, 1))
+        check(ramp, dt, 8, "ramp")
+        check(np.full((33, 65), 7.0), dt, 8, "const")
+    check(np.tile(np.arange(8192, dtype=np.float64), (20, 1)),
+          torch.float32, 8, "wide ramp 20x8192")
+    check(to_device(rng.normal(size=(3, 45, 70)) * 9, torch.bfloat16, dev),
+          None, 8, "batch (3, 45, 70)")
+
+    # Each width regime and its edges, at S = 8 and 16.
+    for s in (8, 16):
+        narrow = ka.NARROW_ENTRIES // s
+        cap = (ka.SMEM_BYTES - ka.STATIC_BYTES) // (
+            4 * -(-s // ka.MAX_CLUSTER))
+        if (ka.strip_layout(s, narrow)[0], ka.strip_layout(s, narrow + 1)[0],
+                ka.strip_layout(s, cap), ka.strip_layout(s, cap + 1)[0]) != (
+                "shared16", "cluster", ("cluster", ka.MAX_CLUSTER), "global"):
+            raise AssertionError(f"unexpected regime edges at S={s}")
+        for w in (narrow - 1, narrow, narrow + 1, 10240, 16384):
+            h = 2 * s + 3                       # a ragged last strip
+            for dt in dtypes:
+                check(rng.normal(size=(h, w)) * 40, dt, s, f"gauss({h}, {w})")
+            check(rng.integers(0, 3, size=(h, w)).astype(np.float64),
+                  torch.float32, s, f"ties({h}, {w})")
+            check(column_ramp(h, w, s), torch.float32, s,
+                  f"column ramp({h}, {w})")
+            nans = rng.normal(size=(h, w)) * 40
+            nans[rng.random((h, w)) < 0.1] = np.nan
+            for dt in (torch.float32, torch.bfloat16):
+                check(signed_zeros((h, w), dt), None, s,
+                      f"signed zeros({h}, {w})")
+                check(nans, dt, s, f"NaN pixels({h}, {w})")
+            zeros = np.zeros((h, w))
+            zeros[h // 2, w // 2] = 1.0
+            check(zeros, torch.uint8, s, f"zeros with one peak({h}, {w})")
+            flat = to_device(rng.normal(size=1 + h * w) * 40, torch.float32,
+                             dev)
+            check(flat[1:].view(h, w), None, s, f"unaligned view({h}, {w})")
+        for w in (cap, cap + 1):               # the widest cluster, one more
+            h = s + 1
+            check(rng.normal(size=(h, w)) * 40, torch.float32, s,
+                  f"gauss({h}, {w})")
+            check(column_ramp(h, w, s), torch.int32, s,
+                  f"column ramp({h}, {w})")
+            check(rng.integers(0, 3, size=(h, w)).astype(np.float64),
+                  torch.uint8, s, f"ties({h}, {w})")
+    storm = to_device(rng.integers(0, 3, size=(3, 2048, 2048))
+                      .astype(np.float64), torch.bfloat16, dev)
+    check(storm, None, 8, "bf16 tie storm (3, 2048, 2048)")
+    check(to_device(rng.normal(size=(2, 17, 8193)) * 9, torch.int16, dev),
+          None, 8, "batch (2, 17, 8193)")
+    bucket = survey_bucket(dev)
+    for s in (1, 8, 16):
+        check(bucket, None, s, "survey bucket (5, 2048, 2048)")
+    x_main = torch.from_numpy(astro.generate_image(0, MAIN_SIZE)).to(dev)
+    for s in (1, 8, 16):
+        check(x_main, None, s, f"astro {MAIN_SIZE}²")
+    return n
 
 
 def best_edge_cases(dev, rng, err) -> int:
@@ -799,7 +962,7 @@ def main() -> int:
                     for lib in libraries.values()],
          ptxas={name: ptxas_report(libraries[name])
                 for name in ("flash_attention", "maxpool", "ph_distance",
-                             "ph_phase_c")},
+                             "ph_phase_c", "ph_phase_a")},
          ptxas_note="flash_fwd_wgmma_kernel's registers are its launch "
                     "share; setmaxnreg leaves the producer warpgroup 24 and "
                     "gives each consumer warpgroup 240")
@@ -808,57 +971,39 @@ def main() -> int:
     rng = np.random.default_rng(0)
 
     def as_dtype(img: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
-        if dtype == torch.uint8:
-            img = np.clip(np.abs(img), 0, 255)
-        t = torch.from_numpy(np.ascontiguousarray(img).astype(np.float32))
-        return t.to(dtype).to(dev).contiguous()
+        return to_device(img, dtype, dev)
 
     err = {name: 0.0 for name in libraries}
-
-    def check_phase_a(x: torch.Tensor, s: int, label: str) -> None:
-        p_k, m_k = ka.phase_a(x, strip_rows=s)
-        p_r, m_r = ra.phase_a(x, strip_rows=s)
-        err["ph_phase_a"] = max(err["ph_phase_a"], max_abs_diff(p_k, p_r),
-                                max_abs_diff(m_k, m_r))
-        if not (torch.equal(p_k, p_r) and torch.equal(m_k, m_r)):
-            bad = int((p_k != p_r).sum() + (m_k != m_r).sum())
-            raise AssertionError(f"phase_a kernel != plain on {label} "
-                                 f"(S={s}): {bad} differing entries")
-
     dtypes = (torch.uint8, torch.int16, torch.int32, torch.float32,
               torch.bfloat16)
-    n_cases = 0
-    for dt in dtypes:
-        for shape in ((37, 53), (64, 64), (1, 29), (29, 1), (1, 1)):
-            gauss = rng.normal(size=shape) * 40
-            ties = rng.integers(0, 3, size=shape).astype(np.float64)
-            for kind, img in (("gauss", gauss), ("ties", ties)):
-                for s in (1, 8, 16):
-                    check_phase_a(as_dtype(img, dt), s, f"{kind}{shape}/{dt}")
-                    n_cases += 1
-        ramp = np.tile(np.arange(4096, dtype=np.float64) % 200, (24, 1))
-        check_phase_a(as_dtype(ramp, dt), 8, f"ramp/{dt}")
-        check_phase_a(as_dtype(np.full((33, 65), 7.0), dt), 8, f"const/{dt}")
-        n_cases += 2
-    wide = np.tile(np.arange(8192, dtype=np.float64), (20, 1))
-    check_phase_a(as_dtype(wide, torch.float32), 8, "wide ramp 20x8192")
-    batch = as_dtype(rng.normal(size=(3, 45, 70)) * 9, torch.bfloat16)
-    check_phase_a(batch, 8, "batch (3, 45, 70)")
+    n_cases = phase_a_cases(dev, rng, err)
+    n = MAIN_SIZE * MAIN_SIZE
     frame = astro.generate_image(0, MAIN_SIZE)
     x_main = torch.from_numpy(frame).to(dev)
-    for s in (1, 8, 16):
-        check_phase_a(x_main, s, f"astro {MAIN_SIZE}²")
-    n_cases += 5
-    n = MAIN_SIZE * MAIN_SIZE
     a_ms = cuda_ms(lambda: ka.phase_a(x_main, strip_rows=8))
     a_dev_ms = device_ms(lambda: ka.phase_a(x_main, strip_rows=8))
     a_plain_ms = cuda_ms(lambda: ra.phase_a(x_main, strip_rows=8))
-    a_bytes = n * (4 + 4 + 4)            # read f32 image, write ptr + mask
-    a_bound_ms = a_bytes / HBM_BYTES_PER_S * 1e3
-    emit("phase_a", cases=n_cases, bitwise_equal=True, shape=[MAIN_SIZE] * 2,
-         dtype="float32", strip_rows=8, kernel_ms=a_ms, device_ms=a_dev_ms,
-         plain_ms=a_plain_ms, bound_ms=a_bound_ms,
-         bound_share=a_bound_ms / a_dev_ms)
+    a_bound_ms = phase_a_bound_ms(x_main)
+    # The mixed batch's bucket and a wide frame (its strips span a cluster).
+    timed_a = {}
+    for label, x in (("bucket", survey_bucket(dev)),
+                     ("wide", torch.from_numpy(astro.generate_image(
+                         0, PHASE_A_WIDE)).to(dev))):
+        check_phase_a(x, 8, f"{label} {tuple(x.shape)}", err)
+        t_ms = cuda_ms(lambda: ka.phase_a(x, strip_rows=8))
+        t_dev_ms = device_ms(lambda: ka.phase_a(x, strip_rows=8))
+        bound = phase_a_bound_ms(x)
+        timed_a[label] = dict(shape=list(x.shape), kernel_ms=t_ms,
+                              device_ms=t_dev_ms, bound_ms=bound,
+                              bound_share=bound / t_dev_ms,
+                              layout=ka.strip_layout(8, x.shape[-1]))
+        del x
+    emit("phase_a", cases=n_cases + 2, bitwise_equal=True,
+         shape=[MAIN_SIZE] * 2, dtype="float32", strip_rows=8,
+         layout=ka.strip_layout(8, MAIN_SIZE), kernel_ms=a_ms,
+         device_ms=a_dev_ms, plain_ms=a_plain_ms, bound_ms=a_bound_ms,
+         bound_share=a_bound_ms / a_dev_ms, design=DESIGN["ph_phase_a"],
+         **timed_a)
 
     # -- 4. maxpool kernel vs plain ----------------------------------------
     def check_pool(x: torch.Tensor, label: str) -> None:
@@ -1347,7 +1492,8 @@ def main() -> int:
          "launches": launches["ph_phase_a"],
          "max_abs_err": err["ph_phase_a"],
          "ms": a_ms, "device_ms": a_dev_ms, "plain_ms": a_plain_ms,
-         "bound_ms": a_bound_ms, "bound_by": "bytes", "library_ms": None},
+         "bound_ms": a_bound_ms, "bound_by": "bytes", "library_ms": None,
+         "design": DESIGN["ph_phase_a"]},
         {"name": "ph_phase_c_best_edge", "route": "cuda",
          "source": "src/repro_torch/kernels/ph_phase_c/csrc/best_edge.cu",
          "replaces": "src/repro/kernels/ph_phase_c/kernel.py:42",

@@ -120,9 +120,14 @@ class CudaLibrary:
 
 def build_all(libraries) -> float:
     """Build every library that is not cached, all ``nvcc`` processes at
-    once, then load them.  Returns the wall seconds taken."""
+    once (one per distinct source and flags), then load them.  Returns the
+    wall seconds taken."""
     t0 = time.perf_counter()
-    handles = [(lib, lib.start_build()) for lib in libraries]
+    handles, started = [], set()
+    for lib in libraries:
+        path = lib.library_path()
+        handles.append((lib, None if path in started else lib.start_build()))
+        started.add(path)
     errors = []
     for lib, handle in handles:          # wait for every process first
         try:

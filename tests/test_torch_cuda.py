@@ -46,22 +46,62 @@ def _image(dtype, shape, seed, levels=None):
     return torch.from_numpy(img.astype(np.float32)).to(dtype).cuda()
 
 
+def _phase_a_equal(x, s, what):
+    kp, km = ka.phase_a(x, strip_rows=s)
+    rp, rm = ra.phase_a(x, strip_rows=s)
+    assert torch.equal(kp, rp) and torch.equal(km, rm), (what, s)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_phase_a_kernel_matches_plain_version(dtype):
+    """Small and degenerate shapes, then every width regime of the kernel
+    and its edges (S * W = 65,536 and a column either side, the widest
+    cluster strip and a column more, widths 10240 and 16384) at S = 8
+    and 16, the mixed batch's (5, 2048, 2048) bucket with its fill
+    padding, signed zeros and a bfloat16 tie storm."""
     _need_cuda()
     for shape in ((13, 9), (1, 17), (17, 1), (1, 1), (40, 300)):
         for levels in (None, 3):
             x = _image(dtype, shape, sum(shape), levels)
             for s in (1, 3, 8, 16):
-                kp, km = ka.phase_a(x, strip_rows=s)
-                rp, rm = ra.phase_a(x, strip_rows=s)
-                assert torch.equal(kp, rp) and torch.equal(km, rm), \
-                    (dtype, shape, levels, s)
-    batch = _image(dtype, (3, 21, 30), 5)
-    kp, km = ka.phase_a(batch, strip_rows=8)
-    rp, rm = ra.phase_a(batch, strip_rows=8)
-    assert torch.equal(kp, rp) and torch.equal(km, rm)
+                _phase_a_equal(x, s, (dtype, shape, levels))
+    _phase_a_equal(_image(dtype, (3, 21, 30), 5), 8, (dtype, "batch"))
+    for s in (8, 16):
+        narrow = ka.NARROW_ENTRIES // s
+        cap = (ka.SMEM_BYTES - ka.STATIC_BYTES) // (
+            4 * -(-s // ka.MAX_CLUSTER))
+        assert ka.strip_layout(s, cap) == ("cluster", ka.MAX_CLUSTER)
+        assert ka.strip_layout(s, cap + 1) == ("global", 1)
+        for w, h in ((narrow - 1, 2 * s + 3), (narrow, 2 * s + 3),
+                     (narrow + 1, 2 * s + 3), (10240, 2 * s + 3),
+                     (16384, 2 * s + 3), (cap, s + 1), (cap + 1, s + 1)):
+            for levels in (None, 3):
+                x = _image(dtype, (h, w), w + s, levels)
+                _phase_a_equal(x, s, (dtype, h, w, levels))
+            if dtype in (torch.float32, torch.int32):
+                r, c = np.mgrid[:h, :w]
+                ramp = c * 2 * s - np.abs(r % s - s // 2)
+                x = torch.from_numpy(ramp.astype(np.float32)).to(dtype)
+                _phase_a_equal(x.cuda(), s, (dtype, h, w, "column ramp"))
+    if dtype.is_floating_point:
+        zeros = np.random.default_rng(1).choice(
+            [0.0, -0.0, 1.0, -1.0], size=(19, 8193)).astype(np.float32)
+        for s in (1, 8, 16):
+            _phase_a_equal(torch.from_numpy(zeros).to(dtype).cuda(), s,
+                           (dtype, "signed zeros"))
+    frames = [astro.generate_window(i, 0, 0, h, w, size=2048)
+              for i, (h, w) in enumerate(((2048, 2048), (2048, 1536),
+                                          (1536, 1536), (1024, 2048),
+                                          (1000, 1800)), start=10)]
+    bucket = torch.full((5, 2048, 2048), float("-inf"))
+    for i, f in enumerate(frames):
+        bucket[i, :f.shape[0], :f.shape[1]] = torch.from_numpy(f)
+    if dtype == torch.float32:
+        _phase_a_equal(bucket.cuda(), 8, "survey bucket")
+    if dtype == torch.bfloat16:
+        _phase_a_equal(_image(dtype, (3, 2048, 2048), 2, 3), 8,
+                       "bfloat16 tie storm")
 
 
 @pytest.mark.cuda
