@@ -63,7 +63,22 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 11. oracle — at 256² (an astro frame, random uint8, random bfloat16) the port
              on the card equals the numpy union-find oracle for the scan,
              Boruvka-xla and Boruvka-fused merges;
-12. flash_attention — the flash attention kernel against its plain version
+12. tiled   — ``run_tiled`` of the paper's 10240² frame: ``AstroImage(0,
+             10240)`` as a tile provider through ``PHEngine(MAIN_CONFIG,
+             tile=TileSpec())`` (auto grid (10, 10) of 1024² tiles, the
+             threshold from ``provider_threshold``): regrow chain,
+             best-edge launches (> 0), peak device memory; ``stage_tiles``
+             then ``run_tiled`` (steady), stage device times (per-tile A+B,
+             ring table, seam merge); every diagram field equal to ``run``
+             of the frame phase 3 rendered, at the same threshold; the seam
+             merge's first Boruvka round held to the plain version
+             bitwise and timed beside its bound and ``scatter_reduce_``;
+13. delta   — ``run_delta`` over ``FrameSequence(0, 10240, grid=(10, 10),
+             dirty_frac=0.05)`` (its base the same frame), frames 0, 1, 2
+             and 2 again at that threshold: miss, partial (the frame's
+             ``dirty_tiles``), partial, full hit, each equal to a cold
+             ``run_tiled`` bitwise; wall ms per frame, the hash apart;
+14. flash_attention — the flash attention kernel against its plain version
              (``FLASH_CASES``: GQA, MQA, MHA, windows, non-causal, ragged
              Sq != Skv, rows that see no key, hd 64/128/256, the edges of
              the kernel's tiles) in float32 and bfloat16 at ``FLASH_TOL``,
@@ -72,7 +87,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
              instructions in its SASS (cuobjdump); timed at the LM
              prefill's shape beside its bound, in turns with
              ``scaled_dot_product_attention``;
-13. lm_serve — ``serve`` of mistral_nemo_12b at full width and depth (random
+15. lm_serve — ``serve`` of mistral_nemo_12b at full width and depth (random
              weights drawn on the card from seed 0): 4 prompts of 1024
              tokens, 32 greedy tokens; one flash launch per layer; the
              last layer's flash call of a prefill against the plain
@@ -82,7 +97,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
              ``LOGIT_ATOL``/``LOGIT_RTOL``, which a control (one KV tile
              hidden) must fail; one prefill and one decode step under
              ``torch.profiler`` (device busy ms by kind, idle share);
-14. lm_forward — ``Model.loss_fn`` forward at 2 x 2048 tokens: 40 flash
+16. lm_forward — ``Model.loss_fn`` forward at 2 x 2048 tokens: 40 flash
              launches, the loss equal to the plain-attention run's within
              ``LOSS_ATOL``, which the hidden-tile control must miss.
 
@@ -114,6 +129,15 @@ MAIN_SIZE = 4096
 # A width of the paper's 10240² frames: phase A's strips of it at S = 8
 # take the kernel's cluster regime.
 PHASE_A_WIDE = 10240
+# The tiled and delta phases' frame: the paper's 10240² (image 0, which
+# phase 3 renders); TileSpec()'s budget of 1 << 20 pixels a tile gives a
+# (10, 10) grid of 1024² tiles.
+TILED_SIZE = PHASE_A_WIDE
+TILED_GRID = (10, 10)
+# The delta phase's survey stream: frames 0, 1 and 2, then 2 again, each
+# later frame adding transients to 5 % of the tiles.
+DELTA_FRAMES = (0, 1, 2, 2)
+DELTA_DIRTY_FRAC = 0.05
 BATCH_SIZE = 2048
 ORACLE_SIZE = 256
 # The survey batch of the mixed_batch phase: (h, w) windows of 2048² frames.
@@ -648,6 +672,255 @@ def phase_flash_attention(dev, rng, err) -> dict:
             "library_device_ms": timed["library_device_ms"], "sass": sass}
 
 
+def same_diagram(a, b) -> bool:
+    """Every field of two diagrams equal, bit for bit."""
+    from repro_torch.core import diagram_to_numpy
+    import numpy as np
+    return all(np.array_equal(x, y) for x, y in
+               zip(diagram_to_numpy(a), diagram_to_numpy(b)))
+
+
+def stage_marks(fn):
+    """``fn(mark)`` with CUDA events recorded at each ``mark(stage)``:
+    returns ``(out, {stage: ms})``, each interval from the previous mark
+    (they include the stage's waits on host readbacks)."""
+    import torch
+    marks = []
+
+    def mark(stage: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((stage, ev))
+
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(mark)
+    torch.cuda.synchronize()
+    ms, prev = {}, start
+    for stage, ev in marks:
+        ms[stage] = prev.elapsed_time(ev)
+        prev = ev
+    return out, ms
+
+
+def wall_ms(fn):
+    """``(fn(), host ms)`` around a call that ends synchronized."""
+    import torch
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_tiled(dev, frame, reset_counts, read_counts, err) -> dict:
+    """Phase 12: ``run_tiled`` of the paper's 10240² frame.
+
+    ``AstroImage(0, TILED_SIZE)`` (a tile provider: every halo tile is
+    rendered and staged on its own) through ``PHEngine(MAIN_CONFIG,
+    tile=TileSpec())``, the threshold from ``provider_threshold``: the
+    regrow chain, best-edge launches (> 0), peak device memory; then
+    ``stage_tiles`` + ``run_tiled`` (the steady run), the per-stage
+    device times on the staged stacks, ``run`` of ``frame`` (the same
+    image, rendered whole) at the same threshold, and the seam merge's
+    first Boruvka round held to the plain version and timed.  Every
+    diagram must equal the provider run's bitwise.
+    """
+    import torch
+    from repro_torch.core import tiling
+    from repro_torch.core.packed_keys import key_pad, resolve_merge_keys
+    from repro_torch.data import astro
+    from repro_torch.kernels.ph_phase_c import kernel as kc
+    from repro_torch.kernels.ph_phase_c import ops as oc
+    from repro_torch.kernels.ph_phase_c import ref as rc
+    from repro_torch.ph import PHConfig, PHEngine, TileSpec
+
+    cfg = PHConfig(**MAIN_CONFIG, tile=TileSpec())
+    engine = PHEngine(cfg)
+    prov = astro.AstroImage(0, TILED_SIZE)
+    tv = engine.provider_threshold(prov)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res, first_ms = wall_ms(lambda: engine.run_tiled(prov))
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if launches["ph_phase_c"] <= 0:
+        raise AssertionError(f"tiled path missed the best-edge kernel: "
+                             f"{launches}")
+    if res.regrow.overflow or bool(res.diagram.overflow):
+        raise AssertionError("tiled path still overflows after regrow")
+    if res.threshold != tv:
+        raise AssertionError("run_tiled's threshold is not the provider's")
+    grid = tuple(res.config.tile.grid)
+    if grid != TILED_GRID:
+        raise AssertionError(f"auto grid {grid} != {TILED_GRID}")
+    mf = res.config.max_features
+    tf = res.config.tile.max_features_per_tile
+    tk = res.config.tile.max_candidates_per_tile
+
+    # The staged path: stage once, then the steady run (memo settled).
+    staged, stage_ms = wall_ms(lambda: engine.stage_tiles(prov))
+    before = kc.LIBRARY.launches
+    res_s, steady_ms = wall_ms(lambda: engine.run_tiled(staged, tv))
+    rounds = kc.LIBRARY.launches - before
+    if res_s.regrow.attempts or not same_diagram(res.diagram,
+                                                 res_s.diagram):
+        raise AssertionError("run_tiled of staged tiles != run_tiled of "
+                             "the provider")
+    _, steady2_ms = wall_ms(lambda: engine.run_tiled(staged, tv))
+
+    # Per-stage device times of the same computation on the staged stacks.
+    kw = dict(shape=staged.shape, grid=grid, max_features=mf,
+              tile_max_features=tf, tile_max_candidates=tk,
+              merge_keys=resolve_merge_keys(cfg.merge_keys,
+                                            staged.pvals.dtype),
+              phase_c_impl=cfg.phase_c_impl)
+    tvt = torch.tensor(tv, dtype=torch.float32, device=dev)
+    td, tiled_stage_ms = stage_marks(
+        lambda mark: tiling.tiled_pixhomology_stacks(
+            staged.pvals, staged.pgidx, tvt, mark=mark, **kw))
+    if not same_diagram(td.diagram, res.diagram):
+        raise AssertionError("staged stage-timed run differs")
+    n_cand = int(td.n_tile_cands.sum())
+    n_roots = int(td.n_tile_roots.sum())
+
+    # The whole image through run() at the same threshold and diagram
+    # capacity (its candidate capacity is the tiles' candidate count).
+    whole = PHEngine(cfg.replace(max_features=mf,
+                                 regrow_features_ceiling=mf,
+                                 max_candidates=max(n_cand, 1)))
+    wres, whole_ms = wall_ms(lambda: whole.run(frame, tv))
+    if not same_diagram(wres.diagram, res.diagram):
+        raise AssertionError(f"run_tiled != run at {TILED_SIZE}²")
+
+    # The seam merge's first Boruvka round (its largest instance).
+    captured = []
+    kernel_fn = kc.best_edge_reduce
+
+    def capture(key, ra_, rb_, nv):
+        if not captured:
+            captured.append((key.clone(), ra_.clone(), rb_.clone(), nv))
+        return kernel_fn(key, ra_, rb_, nv)
+
+    oc.kernel.best_edge_reduce = capture
+    try:
+        engine.run_tiled(staged, tv)
+    finally:
+        oc.kernel.best_edge_reduce = kernel_fn
+    key, ra_, rb_, nv = captured[0]
+    b_k, w_k = kc.best_edge_reduce(key, ra_, rb_, nv)
+    b_r, w_r = rc.best_edge_reduce(key, ra_, rb_, nv)
+    err["ph_phase_c"] = max(err["ph_phase_c"], max_abs_diff(b_k, b_r),
+                            max_abs_diff(w_k, w_r))
+    if not (torch.equal(b_k, b_r) and torch.equal(w_k, w_r)):
+        raise AssertionError("best_edge kernel != plain on the seam round")
+    pad = key_pad(key.dtype)
+    alive = key > pad
+    live = int(alive.sum())
+    drop = torch.full_like(ra_, nv)
+    lib_idx = torch.cat([torch.where(alive, ra_, drop),
+                         torch.where(alive, rb_, drop)]).long()
+    lib_src = torch.cat([key, key])
+    lib_best = torch.full((nv + 1,), pad, dtype=key.dtype, device=dev)
+    timed = in_turns(lambda: kc.best_edge_reduce(key, ra_, rb_, nv),
+                     lambda: lib_best.scatter_reduce_(0, lib_idx, lib_src,
+                                                      "amax"))
+    kb = key.element_size()
+    bound_ms = (key.numel() * kb + live * 8 + nv * (kb + 4)) \
+        / HBM_BYTES_PER_S * 1e3
+    seam = dict(edges=key.numel(), live_edges=live, nv=nv,
+                key_dtype=str(key.dtype), ms=timed["ms"],
+                device_ms=timed["device_ms"],
+                plain_ms=cuda_ms(lambda: rc.best_edge_reduce(
+                    key, ra_, rb_, nv)),
+                library_ms=timed["library_ms"],
+                library_device_ms=timed["library_device_ms"],
+                turns_device_ms=timed["turns_device_ms"], bound_ms=bound_ms,
+                bound_share=bound_ms / timed["device_ms"],
+                bitwise_equal=True)
+    whole_attempts = wres.regrow.attempts
+    del staged, td, wres
+    torch.cuda.empty_cache()
+    emit("tiled", shape=[TILED_SIZE] * 2, grid=list(grid),
+         config=json.loads(cfg.to_json()), threshold=tv,
+         count=int(res.diagram.count),
+         n_unmerged=int(res.diagram.n_unmerged), tile_roots=n_roots,
+         tile_candidates=n_cand, final_max_features=mf,
+         final_tile_max_features=tf, final_tile_max_candidates=tk,
+         regrow_attempts=res.regrow.attempts,
+         regrow_log=[[list(r["from"]), list(r["to"])]
+                     for r in engine.regrow_log],
+         first_call_ms=first_ms, stage_tiles_ms=stage_ms,
+         steady_wall_ms=steady_ms, steady_wall_ms_again=steady2_ms,
+         stage_ms=tiled_stage_ms, whole_run_ms=whole_ms,
+         whole_regrow_attempts=whole_attempts,
+         boruvka_rounds=rounds, launches=launches,
+         peak_device_gb=peak / 1e9, seam_round=seam,
+         equals_run=True, equals_staged=True)
+    return {"launches": launches, "threshold": tv, "grid": grid,
+            "capacities": (mf, tf, tk), "seam_round": seam,
+            "count": int(res.diagram.count)}
+
+
+def phase_delta(frame, tiled) -> dict:
+    """Phase 13: delta-PH over a survey stream of the 10240² frame.
+
+    ``FrameSequence(0, TILED_SIZE, grid=(10, 10), dirty_frac=0.05)`` with
+    its base the frame phase 3 rendered; frames ``DELTA_FRAMES`` through
+    ``run_delta`` at the tiled phase's threshold and final capacities.
+    Each must equal a cold ``run_tiled`` of the same frame bitwise, and
+    the hits must read miss, partial (the frame's ``dirty_tiles``),
+    partial, full.  Wall ms per frame, the tile hash timed apart.
+    """
+    from repro_torch.core import delta
+    from repro_torch.data import astro
+    from repro_torch.kernels.ph_phase_c import kernel as kc
+    from repro_torch.ph import DeltaSpec, PHConfig, PHEngine, TileSpec
+
+    mf, tf, tk = tiled["capacities"]
+    tv, grid = tiled["threshold"], tiled["grid"]
+    cfg = PHConfig(**MAIN_CONFIG, max_features=mf, delta=DeltaSpec(),
+                   tile=TileSpec(max_features_per_tile=tf,
+                                 max_candidates_per_tile=tk))
+    engine = PHEngine(cfg)
+    fs = astro.FrameSequence(0, TILED_SIZE, grid=grid,
+                             dirty_frac=DELTA_DIRTY_FRAC)
+    fs._base = frame            # base() would render the same frame again
+    rows, cold = [], {}
+    want = [("miss", grid[0] * grid[1])] + [
+        ("partial", len(fs.dirty_tiles(i))) for i in DELTA_FRAMES[1:3]] + [
+        ("full", 0)]
+    launches = 0
+    for i, (kind, n_dirty) in zip(DELTA_FRAMES, want):
+        img = fs.frame(i)
+        x = engine.cast_input_host(img)
+        _, hash_ms = wall_ms(lambda: delta.frame_digests(x, grid))
+        before = kc.LIBRARY.launches
+        res, ms = wall_ms(lambda: engine.run_delta(img, tv))
+        launches += kc.LIBRARY.launches - before
+        if (res.delta.hit, res.delta.n_dirty) != (kind, n_dirty):
+            raise AssertionError(f"frame {i}: {res.delta} != {kind} with "
+                                 f"{n_dirty} dirty tiles")
+        if res.regrow.attempts:
+            raise AssertionError(f"frame {i} regrew at settled capacities")
+        cold_ms = None
+        if i not in cold:
+            cold[i], cold_ms = wall_ms(lambda: engine.run_tiled(img, tv))
+        if not same_diagram(res.diagram, cold[i].diagram):
+            raise AssertionError(f"run_delta != cold run_tiled on frame {i}")
+        rows.append(dict(frame=i, hit=res.delta.hit,
+                         n_dirty=res.delta.n_dirty,
+                         dirty_tiles=fs.dirty_tiles(i).tolist(),
+                         wall_ms=ms, hash_ms=hash_ms,
+                         cold_run_tiled_ms=cold_ms,
+                         count=int(res.diagram.count)))
+    emit("delta", shape=[TILED_SIZE] * 2, grid=list(grid),
+         dirty_frac=DELTA_DIRTY_FRAC, threshold=tv, frames=rows,
+         best_edge_launches=launches, cache=engine.delta_cache_stats(),
+         equals_cold_run_tiled=True)
+    return {"launches": launches}
+
+
 def device_profile(fn) -> dict:
     """One run of ``fn`` under ``torch.profiler``: its host wall ms (with
     the profiler's own cost), the device time of its kernels and copies
@@ -942,10 +1215,6 @@ def main() -> int:
     def read_counts() -> dict:
         return {name: lib.launches for name, lib in libraries.items()}
 
-    def same_diagram(a, b) -> bool:
-        return all(np.array_equal(x, y) for x, y in
-                   zip(diagram_to_numpy(a), diagram_to_numpy(b)))
-
     # -- 1. device ---------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -986,9 +1255,9 @@ def main() -> int:
     a_bound_ms = phase_a_bound_ms(x_main)
     # The mixed batch's bucket and a wide frame (its strips span a cluster).
     timed_a = {}
+    wide_frame = astro.generate_image(0, PHASE_A_WIDE)   # phases 12-13 too
     for label, x in (("bucket", survey_bucket(dev)),
-                     ("wide", torch.from_numpy(astro.generate_image(
-                         0, PHASE_A_WIDE)).to(dev))):
+                     ("wide", torch.from_numpy(wide_frame).to(dev))):
         check_phase_a(x, 8, f"{label} {tuple(x.shape)}", err)
         t_ms = cuda_ms(lambda: ka.phase_a(x, strip_rows=8))
         t_dev_ms = device_ms(lambda: ka.phase_a(x, strip_rows=8))
@@ -1126,23 +1395,10 @@ def main() -> int:
                     phase_c_impl="fused", strip_rows=cfg.strip_rows)
 
     def staged(use_pallas, kw=stage_kw, want=None):
-        """Per-stage device times of one ``pixhomology`` call (CUDA events
-        between stage marks); the diagram must equal ``want``."""
-        marks = []
-
-        def mark(stage: str) -> None:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append((stage, ev))
-
-        start = torch.cuda.Event(enable_timing=True)
-        start.record()
-        d = pixhomology(x_run, tv, mark=mark, use_pallas=use_pallas, **kw)
-        torch.cuda.synchronize()
-        ms, prev = {}, start
-        for stage, ev in marks:
-            ms[stage] = prev.elapsed_time(ev)
-            prev = ev
+        """Per-stage device times of one ``pixhomology`` call; the diagram
+        must equal ``want``."""
+        d, ms = stage_marks(lambda mark: pixhomology(
+            x_run, tv, mark=mark, use_pallas=use_pallas, **kw))
         if not same_diagram(d, res.diagram if want is None else want):
             raise AssertionError(f"staged run (use_pallas={use_pallas}) "
                                  f"differs from the engine run")
@@ -1479,7 +1735,12 @@ def main() -> int:
     emit("oracle", size=s, features=checked,
          merges=["scan", "boruvka/xla", "boruvka/fused"], equal=True)
 
-    # -- 12-14. flash attention, LM serving, LM forward ----------------------
+    # -- 12-13. the tiled path and delta-PH at 10240² ------------------------
+    tiled = phase_tiled(dev, wide_frame, reset_counts, read_counts, err)
+    delta = phase_delta(wide_frame, tiled)
+    del wide_frame
+
+    # -- 14-16. flash attention, LM serving, LM forward ----------------------
     fa = phase_flash_attention(dev, rng, err)
     lm = phase_lm_serve(dev, reset_counts, read_counts)
     phase_lm_forward(dev, lm["params"], reset_counts, read_counts)
@@ -1498,10 +1759,15 @@ def main() -> int:
          "source": "src/repro_torch/kernels/ph_phase_c/csrc/best_edge.cu",
          "replaces": "src/repro/kernels/ph_phase_c/kernel.py:42",
          "launches": launches["ph_phase_c"],
+         "tiled_launches": tiled["launches"]["ph_phase_c"],
+         "delta_launches": delta["launches"],
          "max_abs_err": err["ph_phase_c"],
          "ms": e_ms, "device_ms": e_dev_ms, "plain_ms": e_plain_ms,
          "bound_ms": e_bound_ms, "bound_by": "bytes", "library_ms": e_lib_ms,
          "library_device_ms": e_timed["library_device_ms"],
+         "seam_round": {k: tiled["seam_round"][k] for k in (
+             "edges", "live_edges", "nv", "ms", "device_ms", "plain_ms",
+             "bound_ms", "library_ms")},
          "design": DESIGN["ph_phase_c_best_edge"]},
         {"name": "maxpool3x3", "route": "cuda",
          "source": "src/repro_torch/kernels/maxpool/csrc/maxpool.cu",

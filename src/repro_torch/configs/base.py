@@ -6,7 +6,7 @@ The sharding and rematerialisation knobs (``scan_layers``, ``remat``,
 ``seq_shard``) are carried as data; the port runs one device and eager
 layers.  Only the dense decoders whose blocks the port runs are
 registered (``ARCH_IDS``); the others need block kinds still to be ported
-(ROADMAP.md, queue 1 item 12).
+(ROADMAP.md, queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -101,7 +101,7 @@ def _module(arch: str):
     if name not in ARCH_IDS:
         raise ValueError(f"architecture {arch!r} is not ported (ported: "
                          f"{ARCH_IDS}; the rest need block kinds of ROADMAP "
-                         f"queue 1 item 12)")
+                         f"queue 1 item 7)")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -87,7 +87,8 @@ def higher_neighbor_basins(x: torch.Tensor, xkey: torch.Tensor,
     to it.  Returns ``(ok, basin)`` with a trailing 8-slot axis in
     :data:`NEIGHBOR_OFFSETS` order: ``ok`` is in-bounds AND strictly
     higher AND ``valid``; ``basin`` is ``labels_flat`` at the (clamped)
-    neighbor — garbage where ``ok`` is False.
+    neighbor — garbage where ``ok`` is False.  Leading axes of ``x``,
+    ``key_flat`` and ``labels_flat`` are batch axes (one image each).
     """
     h, w = shape
     n = h * w
@@ -98,7 +99,7 @@ def higher_neighbor_basins(x: torch.Tensor, xkey: torch.Tensor,
         rr, cc = xr + dr, xc + dc
         inb = (rr >= 0) & (rr < h) & (cc >= 0) & (cc < w)
         nid = torch.clamp(rr * w + cc, 0, n - 1).long()
-        higher = key_flat[nid] > xkey
+        higher = gather_flat(key_flat, nid) > xkey
         oks.append(inb & higher & valid)
-        basins.append(labels_flat[nid])
+        basins.append(gather_flat(labels_flat, nid))
     return torch.stack(oks, dim=-1), torch.stack(basins, dim=-1)

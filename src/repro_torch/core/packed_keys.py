@@ -159,28 +159,34 @@ def select_descending(key_flat: torch.Tensor, mask_flat: torch.Tensor,
     Blockwise tournament (each round keeps the per-block top-k of
     ``width * k``-wide blocks) with the same selected set and order as a
     full-array top-k, including under overflow.  Lanes beyond the number
-    of set entries return the pad key and index -1.
+    of set entries return the pad key and index -1.  Selects along the
+    last axis; leading axes are batch axes, each row giving the bits the
+    1-D call gives it.
     """
-    n = key_flat.shape[0]
+    n = key_flat.shape[-1]
+    lead = tuple(key_flat.shape[:-1])
     k = min(k, n)
     if width < 2:
         raise ValueError(f"tournament width must be >= 2, got {width}")
     pad = key_pad(key_flat.dtype)
     keys = torch.where(mask_flat, key_flat, torch.full_like(key_flat, pad))
-    ids = torch.arange(n, dtype=torch.int32, device=key_flat.device)
+    ids = torch.arange(n, dtype=torch.int32,
+                       device=key_flat.device).expand(*lead, n)
     block = width * k
-    while keys.shape[0] > block:
-        length = keys.shape[0]
+    while keys.shape[-1] > block:
+        length = keys.shape[-1]
         m = -(-length // block)
         extra = m * block - length
         if extra:
-            keys = torch.cat([keys, keys.new_full((extra,), pad)])
-            ids = torch.cat([ids, ids.new_full((extra,), -1)])
-        top, order = torch.topk(keys.reshape(m, block), k, dim=1)
-        keys = top.reshape(-1)
-        ids = torch.gather(ids.reshape(m, block), 1, order).reshape(-1)
-    top, order = torch.topk(keys, k)
-    return top, torch.where(top > pad, ids[order], -1).to(torch.int32)
+            keys = torch.cat([keys, keys.new_full((*lead, extra), pad)], -1)
+            ids = torch.cat([ids, ids.new_full((*lead, extra), -1)], -1)
+        top, order = torch.topk(keys.reshape(*lead, m, block), k, dim=-1)
+        keys = top.reshape(*lead, m * k)
+        ids = torch.gather(ids.reshape(*lead, m, block), -1,
+                           order).reshape(*lead, m * k)
+    top, order = torch.topk(keys, k, dim=-1)
+    return top, torch.where(top > pad, torch.gather(ids, -1, order),
+                            -1).to(torch.int32)
 
 
 def masked_top_k(key_flat: torch.Tensor, mask_flat: torch.Tensor,
@@ -190,12 +196,13 @@ def masked_top_k(key_flat: torch.Tensor, mask_flat: torch.Tensor,
     Packed int64 keys go through the tournament (:func:`select_descending`),
     int32 ranks through one full-array top-k.  Lanes beyond the number of
     set entries carry the pad key and an in-range position — consumers
-    must mask on ``keys > key_pad(...)``.
+    must mask on ``keys > key_pad(...)``.  Selects along the last axis
+    (leading axes are batch axes).
     """
     if key_flat.dtype == torch.int64:
         top, idx = select_descending(key_flat, mask_flat, k, width)
         return top, torch.clamp(idx, min=0)
     masked = torch.where(mask_flat, key_flat,
                          torch.full_like(key_flat, key_pad(key_flat.dtype)))
-    top, idx = torch.topk(masked, min(k, key_flat.shape[0]))
+    top, idx = torch.topk(masked, min(k, key_flat.shape[-1]), dim=-1)
     return top, idx.to(torch.int32)

@@ -129,10 +129,10 @@ def keyed_steepest_pointers(values2d: torch.Tensor,
     order; self included.  Fill cells (key -1, value -inf) never win.
 
     The tiled path instantiates this with *global* pixel indices as keys
-    on a halo-padded tile, so the per-tile order is isomorphic to the
-    global one.
+    on a stack of halo-padded tiles (leading axes are batch axes), so the
+    per-tile order is isomorphic to the global one.
     """
-    h, w = values2d.shape
+    h, w = values2d.shape[-2:]
     flat = torch.arange(h * w, dtype=torch.int32,
                         device=values2d.device).reshape(h, w)
     fill_v = neg_inf(values2d.dtype)

@@ -10,7 +10,9 @@ objects per kilopixel².  The read noise is seeded per row, so
 slice of :func:`generate_image`.  Frames are bit-identical to the
 reference package's for the same ``image_id`` and ``size`` (the tests hold
 them equal), and :func:`filter_threshold` gives the Variant-2 threshold
-of a filter level.
+of a filter level.  :class:`AstroImage` is the tile provider the tiled
+path stages one halo tile at a time, and :class:`FrameSequence` the
+survey stream (one base field plus transients) delta-PH exists for.
 """
 from __future__ import annotations
 
@@ -152,3 +154,167 @@ def filter_threshold(img, level) -> tuple[float | None, float]:
         return None, 0.0
     t = estimate_threshold(img) * factor
     return float(t), float((_host_array(img) < t).mean())
+
+
+def estimate_cost(img: np.ndarray, level="filter_std") -> float:
+    """Variant 3 LPT cost proxy: number of non-background pixels."""
+    factor = FILTER_FACTORS[_level_name(level)] or 1.0
+    t = estimate_threshold(img) * factor
+    return float((img >= t).sum())
+
+
+def estimate_cost_from_id(image_id: int, size: int) -> float:
+    """Schedule-time cost estimate without rendering the frame: the number
+    of above-background pixels scales with sum_i sigma_i^2 log(A_i / noise)
+    (area of each Gaussian above the ~5-sigma noise floor)."""
+    a, _, sig = star_params(image_id, size)
+    visible = a > 25.0
+    return float(np.sum(2 * np.pi * sig[visible] ** 2
+                        * np.log(np.maximum(a[visible] / 25.0, 1.0 + 1e-6))))
+
+
+class FrameSequence:
+    """Deterministic survey stream over one base star field: frame 0 is
+    the base frame, each later frame adds localized Gaussian transients
+    confined to a chosen subset of tiles — the workload
+    :meth:`repro_torch.ph.PHEngine.run_delta` exists for.
+
+    ``dirty_frac`` controls how many of the ``grid`` tiles each frame
+    touches (at least one).  Transient stamps are placed at least
+    ``stamp // 2 + 2`` pixels inside their tile, so with halo-padded tile
+    hashing *exactly* the chosen tiles change (the stamp never reaches a
+    neighbor's halo window); :meth:`dirty_tiles` returns the intended set
+    for a frame so tests and benchmarks can assert the delta layer's
+    classification against ground truth.  Everything is deterministic in
+    ``(image_id, frame index)``.
+    """
+
+    def __init__(self, image_id: int, size: int = 1024, *,
+                 grid: tuple[int, int] = (4, 4), dirty_frac: float = 0.1,
+                 amp: float = 2000.0, stamp: int = 15, **gen_kwargs):
+        gr, gc = int(grid[0]), int(grid[1])
+        if size % gr or size % gc:
+            raise ValueError(f"grid {grid} does not divide size {size}")
+        margin = stamp // 2 + 2
+        if size // gr <= 2 * margin or size // gc <= 2 * margin:
+            raise ValueError(f"tiles {size // gr}x{size // gc} too small "
+                             f"for stamp {stamp} with a 2px halo margin")
+        if not 0.0 <= dirty_frac <= 1.0:
+            raise ValueError(f"dirty_frac must be in [0, 1], "
+                             f"got {dirty_frac}")
+        self.image_id = int(image_id)
+        self.size = int(size)
+        self.grid = (gr, gc)
+        self.dirty_frac = float(dirty_frac)
+        self.amp = float(amp)
+        self.stamp = int(stamp)
+        self.gen_kwargs = gen_kwargs
+        self._base: np.ndarray | None = None
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.size, self.size)
+
+    def base(self) -> np.ndarray:
+        """The shared frame-0 star field (rendered once, then reused)."""
+        if self._base is None:
+            self._base = generate_image(self.image_id, self.size,
+                                        **self.gen_kwargs)
+        return self._base
+
+    def dirty_tiles(self, i: int) -> np.ndarray:
+        """Row-major tile indices frame ``i`` perturbs (empty for frame
+        0); ``ceil(dirty_frac * n_tiles)`` of them, at least one."""
+        if i == 0:
+            return np.empty(0, np.int64)
+        gr, gc = self.grid
+        n_tiles = gr * gc
+        n_dirty = max(1, int(np.ceil(self.dirty_frac * n_tiles)))
+        rng = np.random.default_rng(
+            np.random.SeedSequence([77, self.image_id, 5, i]))
+        return np.sort(rng.choice(n_tiles, size=min(n_dirty, n_tiles),
+                                  replace=False))
+
+    def frame(self, i: int) -> np.ndarray:
+        """Frame ``i``: the base field plus one transient per dirty tile,
+        each strictly interior to its tile (see class docstring)."""
+        img = self.base().copy()
+        if i == 0:
+            return img
+        gr, gc = self.grid
+        tr, tc = self.size // gr, self.size // gc
+        half = self.stamp // 2
+        margin = half + 2
+        yy, xx = np.mgrid[-half:half + 1, -half:half + 1].astype(np.float32)
+        rng = np.random.default_rng(
+            np.random.SeedSequence([77, self.image_id, 6, i]))
+        for t in self.dirty_tiles(i):
+            r0, c0 = (int(t) // gc) * tr, (int(t) % gc) * tc
+            cy = r0 + rng.integers(margin, tr - margin)
+            cx = c0 + rng.integers(margin, tc - margin)
+            sig = rng.uniform(1.0, 2.5)
+            a = self.amp * rng.uniform(0.5, 1.5)
+            g = a * np.exp(-((yy ** 2 + xx ** 2) / (2.0 * sig ** 2)))
+            img[cy - half:cy + half + 1, cx - half:cx + half + 1] += g
+        return img
+
+    def frames(self, n: int):
+        """Generator of the first ``n`` frames (feeds
+        ``PHEngine.run_sequence``)."""
+        for i in range(n):
+            yield self.frame(i)
+
+
+class AstroImage:
+    """Windowed Variant-1 loader for one synthetic frame (a tile provider).
+
+    Nothing is rendered at construction; each :meth:`window` /
+    :meth:`halo_tile` call materializes only the pixels it returns, so an
+    executor that owns a few tiles of an oversized image never holds the
+    frame — the streaming pipeline's residency guarantee.  Satisfies the
+    tile-provider protocol of :func:`repro_torch.core.tiling.load_tile_stacks`
+    (``shape`` / ``dtype`` / ``halo_tile``).
+    """
+
+    dtype = np.float32
+
+    def __init__(self, image_id: int, size: int = 1024, **gen_kwargs):
+        self.image_id = int(image_id)
+        self.size = int(size)
+        self.gen_kwargs = gen_kwargs
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.size, self.size)
+
+    def window(self, row0: int, col0: int, h: int, w: int) -> np.ndarray:
+        return generate_window(self.image_id, row0, col0, h, w,
+                               size=self.size, **self.gen_kwargs)
+
+    def halo_tile(self, t: int, grid: tuple[int, int], *,
+                  fill: float = -np.inf) -> np.ndarray:
+        """Tile ``t`` (row-major) of the ``(gr, gc)`` grid with its 1-pixel
+        halo; halo pixels outside the frame are ``fill`` (matching
+        ``repro_torch.core.tiling.split_tiles``)."""
+        gr, gc = grid
+        th, tw = self.size // gr, self.size // gc
+        r0, c0 = (t // gc) * th, (t % gc) * tw
+        out = np.full((th + 2, tw + 2), fill, np.float32)
+        ry0, ry1 = max(0, r0 - 1), min(self.size, r0 + th + 1)
+        rx0, rx1 = max(0, c0 - 1), min(self.size, c0 + tw + 1)
+        win = self.window(ry0, rx0, ry1 - ry0, rx1 - rx0)
+        out[ry0 - (r0 - 1):ry1 - (r0 - 1),
+            rx0 - (c0 - 1):rx1 - (c0 - 1)] = win
+        return out
+
+    def filter_threshold(self, level, *, sample: int = 256) -> float | None:
+        """Variant-2 threshold estimated on a centered ``sample``-square
+        window (O(sample²) resident, deterministic) — the whole-frame
+        statistic would defeat windowed loading for oversized images."""
+        factor = FILTER_FACTORS[_level_name(level)]
+        if factor is None:
+            return None
+        s = min(self.size, sample)
+        off = (self.size - s) // 2
+        return float(estimate_threshold(self.window(off, off, s, s))
+                     * factor)

@@ -35,7 +35,7 @@ class Model:
         if cfg.is_encdec:
             raise NotImplementedError(
                 "encoder-decoder models are not ported yet (ROADMAP.md "
-                "queue 1 item 12)")
+                "queue 1 item 7)")
         transformer.check_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)

@@ -7,7 +7,7 @@ blocks (cfg.block_pattern, cycled over layers):
   lattn — local-window attention + MLP
 
 ``moe``, ``rwkv`` and ``rec`` blocks are still to be ported (ROADMAP.md,
-queue 1 item 12) and raise ``NotImplementedError``.
+queue 1 item 7) and raise ``NotImplementedError``.
 
 Parameters are ``nn.Module`` trees that mirror the reference's parameter
 tree name for name, so a state-dict key is the reference's path with the
@@ -33,7 +33,7 @@ def check_kind(kind: str) -> None:
     if kind in _UNPORTED_KINDS:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet (ROADMAP.md queue 1 "
-            f"item 12: moe, rwkv6 and rglru blocks)")
+            f"item 7: moe, rwkv6 and rglru blocks)")
     if kind not in BLOCK_KINDS:
         raise ValueError(kind)
 
@@ -54,7 +54,7 @@ def check_config(cfg: ModelConfig) -> None:
     if cfg.norm_type != "rmsnorm":
         raise NotImplementedError(
             f"norm {cfg.norm_type!r} is not ported yet (the dense decoders "
-            f"use rmsnorm; ROADMAP.md queue 1 item 12)")
+            f"use rmsnorm; ROADMAP.md queue 1 item 7)")
 
 
 def _norm_shapes(cfg: ModelConfig, prefix: str) -> dict:

@@ -7,6 +7,8 @@
     result = engine.run(image)          # on the CUDA device, auto-regrow
     batch = engine.run_batch(images)    # (B, H, W) or 2D images of any shapes
     sw, bottleneck = engine.distance_matrix(batch)
+    tiled = engine.run_tiled(image)     # halo tiles (config.tile), same bits
+    delta = engine.run_delta(frame)     # config.delta: dirty tiles only
 
 ``PHEngine(config, device="cpu")`` runs the plain PyTorch versions on the
 host instead.

@@ -3,9 +3,9 @@
 The port's own copy of ``repro.ph.config``: the field names, defaults and
 validation are unchanged, so a JSON written by one package loads in the
 other with equal fields and an equal ``stage_signature()``.  Fields the
-port does not act on yet (tiling, serving, delta, overlap, autotune,
-pooled phase A, paper candidates) are carried as data; the engine raises
-where one of them would change what it computes.
+port does not act on yet (serving, overlap, autotune) are carried as
+data; the engine raises where one of them would change what it
+computes.
 
 ``use_pallas`` keeps its name for that round trip.  In the port it selects
 the hand-written CUDA kernels: ``None`` (or ``True``) runs them on CUDA
@@ -48,8 +48,10 @@ def parse_grid(value) -> tuple[int, int]:
 class TileSpec:
     """Tile-decomposition policy for oversized images (halo-tiled PH).
 
-    Carried as data: the tiled path is still to be ported (ROADMAP.md,
-    queue 1 item 5).
+    Read by :meth:`repro_torch.ph.PHEngine.run_tiled` / ``run_delta``:
+    ``grid`` (else ``choose_grid`` under ``max_tile_pixels``) and the
+    initial per-tile root/candidate capacities, which regrow on tile
+    overflow.  ``max_tile_pixels`` also decides ``should_tile``.
     """
 
     grid: tuple[int, int] | None = None    # (gr, gc); None = auto
@@ -89,7 +91,7 @@ class TileSpec:
 class ServeSpec:
     """Serving-daemon policy (bucket set, fixed batch cap, queue bound,
     tick interval, admission).  Carried as data: serving is still to be
-    ported (ROADMAP.md, queue 1 item 9)."""
+    ported (ROADMAP.md, queue 1 item 5)."""
 
     buckets: tuple[tuple[int, int], ...] | None = None
     batch_cap: int = 4
@@ -141,7 +143,7 @@ class ServeSpec:
 class OverlapSpec:
     """Host<->device overlap policy (staging ring, donation, async
     overflow, async harvest).  Carried as data: the overlap engine is still
-    to be ported (ROADMAP.md, queue 1 item 8); every overlapped path is
+    to be ported (ROADMAP.md, queue 1 item 3); every overlapped path is
     bit-identical to the synchronous one the port runs."""
 
     enabled: bool = True
@@ -171,8 +173,11 @@ class OverlapSpec:
 
 @dataclasses.dataclass(frozen=True)
 class DeltaSpec:
-    """Delta-recompute / frame-cache policy.  Carried as data: delta-PH
-    is still to be ported (ROADMAP.md, queue 1 item 7)."""
+    """Delta-recompute / frame-cache policy of
+    :meth:`repro_torch.ph.PHEngine.run_delta`: ``enabled`` (else every
+    frame runs cold through ``run_tiled``), the frame store's LRU depth,
+    the tile hash, and ``verify`` (byte-compare hash-clean tiles, so a
+    digest collision recomputes instead of reusing state)."""
 
     enabled: bool = True
     cache_entries: int = 4

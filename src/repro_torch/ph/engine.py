@@ -16,12 +16,19 @@ Counterpart of ``repro.ph.engine`` for the whole-image path:
   (:mod:`repro_torch.pipeline.padding`), and exact content duplicates
   compute once;
 * **diagram distances** — :meth:`PHEngine.distance_matrix`, its own
-  cached plan kind (:mod:`repro_torch.kernels.ph_distance`).
+  cached plan kind (:mod:`repro_torch.kernels.ph_distance`);
+* **halo-tiled PH** — :meth:`PHEngine.run_tiled` of a host image, a tile
+  provider or staged tile stacks (:mod:`repro_torch.core.tiling`), with
+  per-level regrow (tile capacities, then the seam merge's
+  ``max_features``);
+* **delta-PH** — :meth:`PHEngine.run_delta` / :meth:`run_sequence`
+  against a frame store (:mod:`repro_torch.core.delta`,
+  :class:`repro_torch.cache.DiagramCache`): only dirty tiles recompute.
 
 The engine runs on the CUDA device unless the caller passes another
 ``device`` (the tests pass ``"cpu"``); without CUDA, ``PHEngine()`` raises
-instead of falling back.  Tiling, the distributed pipeline, delta-PH and
-serving are still to be ported (ROADMAP.md, queue 1).
+instead of falling back.  The distributed pipeline, the overlap engine
+and serving are still to be ported (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -39,7 +46,7 @@ from repro_torch.core import Diagram, batched_pixhomology, \
     num_candidates as core_num_candidates, pixhomology, stack_diagrams
 from repro_torch.core.packed_keys import check_finite, resolve_merge_keys
 from repro_torch.core.reference import diagram_to_array
-from repro_torch.ph.config import FilterLevel, PHConfig
+from repro_torch.ph.config import FilterLevel, PHConfig, TileSpec
 
 # The dtypes the kernels take; wider inputs are canonicalized the way the
 # reference package canonicalizes them without 64-bit mode.
@@ -132,6 +139,8 @@ class PHResult:
     # Variant-2 threshold(s) applied: a scalar for run(), a (B,) array for
     # run_batch(), None when no filtering was in effect.
     threshold: Any = None
+    # run_delta's repro_torch.core.delta.DeltaStats; None elsewhere.
+    delta: Any = None
 
     def to_array(self) -> np.ndarray:
         return diagram_to_array(self.diagram)
@@ -157,6 +166,8 @@ class PHEngine:
         self._hits = 0
         self._misses = 0
         self.regrow_log: list[dict] = []
+        # The delta frame store, made at the first run_delta call.
+        self._delta_cache = None
         # Guards the plan cache, the regrow memo and every counter; never
         # held while a plan computes.
         self._lock = threading.RLock()
@@ -217,6 +228,100 @@ class PHEngine:
             return functools.partial(callee, **self._ph_kwargs(mf, mc, mk))
 
         return self.get_plan(key, build)
+
+    def _stage_kwargs(self, dtype) -> dict:
+        """Static arguments shared by the tiled and delta plans."""
+        cfg = self.config
+        return dict(merge_keys=resolve_merge_keys(cfg.merge_keys, dtype),
+                    filtration=cfg.filtration)
+
+    def _merge_kwargs(self) -> dict:
+        cfg = self.config
+        return dict(phase_c_impl=cfg.phase_c_impl,
+                    phase_c_block=cfg.phase_c_block,
+                    use_pallas=cfg.use_pallas)
+
+    def tiled_plan(self, shape, dtype, grid, mf: int, tf: int, tk: int,
+                   truncated: bool) -> Plan:
+        """Halo-tiled PH plan (:func:`repro_torch.core.tiling.\
+tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
+        the per-tile root/candidate capacities."""
+        from repro_torch.core.tiling import tiled_pixhomology
+        key = ("tiled", tuple(shape), str(dtype), grid, mf, tf, tk,
+               truncated, self.config.plan_key())
+
+        def build(plan: Plan):
+            plan.traces += 1
+            return functools.partial(
+                tiled_pixhomology, grid=grid, max_features=mf,
+                tile_max_features=tf, tile_max_candidates=tk,
+                **self._stage_kwargs(dtype), **self._merge_kwargs())
+
+        return self.get_plan(key, build)
+
+    def tiled_stacks_plan(self, shape, dtype, grid, mf: int, tf: int,
+                          tk: int, truncated: bool) -> Plan:
+        """Tiled PH plan over pre-staged tile stacks
+        (:func:`repro_torch.core.tiling.tiled_pixhomology_stacks`) — the
+        streaming path where no host image exists."""
+        from repro_torch.core.tiling import tiled_pixhomology_stacks
+        key = ("tiled_stacks", tuple(shape), str(dtype), grid, mf, tf, tk,
+               truncated, self.config.plan_key())
+
+        def build(plan: Plan):
+            plan.traces += 1
+            return functools.partial(
+                tiled_pixhomology_stacks, shape=tuple(shape), grid=grid,
+                max_features=mf, tile_max_features=tf,
+                tile_max_candidates=tk, **self._stage_kwargs(dtype),
+                **self._merge_kwargs())
+
+        return self.get_plan(key, build)
+
+    def delta_ab_plan(self, tile_shape, dtype, n_stack: int, tf: int,
+                      tk: int, truncated: bool) -> Plan:
+        """Stacked per-tile phases A+B over a dirty-tile stack
+        (:func:`repro_torch.core.delta.phase_ab_stack`); ``n_stack`` is the
+        power-of-two dirty bucket."""
+        from repro_torch.core.delta import phase_ab_stack
+        key = ("delta_ab", tuple(tile_shape), str(dtype), n_stack, tf, tk,
+               truncated, self.config.plan_key())
+
+        def build(plan: Plan):
+            plan.traces += 1
+            return functools.partial(
+                phase_ab_stack, tile_max_features=tf,
+                tile_max_candidates=tk, **self._stage_kwargs(dtype))
+
+        return self.get_plan(key, build)
+
+    def delta_merge_plan(self, shape, dtype, grid, n_stack: int, mf: int,
+                         tf: int, tk: int, truncated: bool) -> Plan:
+        """Scatter fresh dirty rows into the cached tile state and replay
+        the seam merge (:func:`repro_torch.core.delta.scatter_merge`);
+        returns ``(new_state, TiledDiagram)``."""
+        from repro_torch.core.delta import scatter_merge
+        key = ("delta_merge", tuple(shape), str(dtype), grid, n_stack, mf,
+               tf, tk, truncated, self.config.plan_key())
+
+        def build(plan: Plan):
+            plan.traces += 1
+            return functools.partial(
+                scatter_merge, shape=tuple(shape), grid=grid,
+                max_features=mf, tile_max_features=tf,
+                tile_max_candidates=tk, **self._stage_kwargs(dtype),
+                **self._merge_kwargs())
+
+        return self.get_plan(key, build)
+
+    def _resolve_grid(self, shape2d, spec: TileSpec) -> tuple[int, int]:
+        """Tile grid for one image: the spec's explicit grid, else
+        ``choose_grid`` from the tile-pixel budget (the reference's
+        autotuned grid is not ported)."""
+        from repro_torch.core import tiling
+        if spec.grid is not None:
+            return tuple(spec.grid)
+        return tiling.choose_grid(tuple(shape2d), spec.max_tile_pixels)
 
     # -- capacity regrow ---------------------------------------------------
 
@@ -567,6 +672,349 @@ class PHEngine:
             x, cfg.candidate_mode, truncate_value, use_pallas=cfg.use_pallas,
             phase_a_impl=cfg.phase_a_impl, strip_rows=cfg.strip_rows,
             merge_keys=cfg.merge_keys, filtration=cfg.filtration)
+
+    # -- halo-tiled path ----------------------------------------------------
+
+    def _tile_spec(self) -> TileSpec:
+        return self.config.tile if self.config.tile is not None \
+            else TileSpec()
+
+    def should_tile(self, n_pixels: int) -> bool:
+        """True when the config routes an ``n_pixels`` image through the
+        tiled path (``tile`` configured and the image exceeds its
+        ``max_tile_pixels`` budget)."""
+        t = self.config.tile
+        return t is not None and n_pixels > t.max_tile_pixels
+
+    def provider_threshold(self, provider):
+        """Variant-2 threshold for a tile provider, consistent across every
+        streaming entry point: the provider's estimate with its sample
+        budget tied to the tile budget (O(tile) residency).  ``None``
+        under VANILLA."""
+        cfg = self.config
+        if cfg.filter_level is FilterLevel.VANILLA:
+            return None
+        if cfg.filtration == "sublevel":
+            raise ValueError(
+                "filter_level-derived thresholds for tile providers are "
+                "superlevel statistics; under filtration='sublevel' pass "
+                "an explicit truncate_value (or use FilterLevel.VANILLA)")
+        if not hasattr(provider, "filter_threshold"):
+            raise ValueError(
+                f"filter_level={cfg.filter_level} needs a threshold, but "
+                f"the tile provider has no filter_threshold(); pass "
+                f"truncate_value")
+        sample = math.isqrt(self._tile_spec().max_tile_pixels)
+        try:
+            return provider.filter_threshold(cfg.filter_level,
+                                             sample=sample)
+        except TypeError:   # provider without a sample knob
+            return provider.filter_threshold(cfg.filter_level)
+
+    def stage_tiles(self, provider, *, grid=None):
+        """Stage a tile provider's halo-padded tiles on the engine's device
+        (O(tile) host residency), choosing the grid from the config's
+        :class:`TileSpec` when not given.  The returned
+        :class:`repro_torch.core.tiling.StagedTiles` feeds
+        :meth:`run_tiled`."""
+        from repro_torch.core import tiling
+        if grid is None:
+            grid = self._resolve_grid(tuple(provider.shape),
+                                      self._tile_spec())
+        # Halo fill is the user-space inert extreme of the filtration.
+        fill = math.inf if self.config.filtration == "sublevel" else None
+        return tiling.load_tile_stacks(provider, tuple(grid), fill=fill,
+                                       device=self.device)
+
+    def _tiled_source(self, image, truncate_value, grid, *, upload: bool):
+        """Resolve a tiled entry point's input: a :class:`StagedTiles`
+        (staged from a tile provider if need be), or the cast image
+        (uploaded when ``upload``, else left on the host).  Returns
+        ``(source, shape, grid, dtype, truncate_value)``."""
+        from repro_torch.core import tiling
+        cfg = self.config
+        staged = image if isinstance(image, tiling.StagedTiles) else None
+        if staged is None and hasattr(image, "halo_tile"):
+            if truncate_value is None:
+                truncate_value = self.provider_threshold(image)
+            staged = self.stage_tiles(image, grid=grid)
+        if staged is not None:
+            if cfg.dtype is not None:       # apply the config dtype policy
+                staged = dataclasses.replace(staged, pvals=staged.pvals.to(
+                    _CONFIG_DTYPES[cfg.dtype]))
+            if grid is not None and tuple(grid) != tuple(staged.grid):
+                raise ValueError(f"grid={tuple(grid)} does not match the "
+                                 f"staged tiles' grid {staged.grid}")
+            source, shape = staged, tuple(staged.shape)
+            grid, dtype = tuple(staged.grid), staged.pvals.dtype
+        else:
+            source = self.cast_input(image) if upload \
+                else self.cast_input_host(image)
+            if source.dim() != 2:
+                raise ValueError(f"expected 2D image, got shape "
+                                 f"{tuple(source.shape)}")
+            if truncate_value is None:
+                truncate_value = self.auto_threshold(image)
+            shape, dtype = tuple(source.shape), source.dtype
+            if grid is None:
+                grid = self._resolve_grid(shape, self._tile_spec())
+        grid = tuple(grid)
+        tiling.validate_grid(shape, grid)
+        return source, shape, grid, dtype, truncate_value
+
+    def _tiled_capacities(self, shape, grid, dtype):
+        """First-attempt ``(max_features, tile features, tile candidates)``
+        (clamped to the pixel counts, raised to the sticky memo) and the
+        memo key, which run_tiled and run_delta share."""
+        cfg, spec = self.config, self._tile_spec()
+        n = shape[0] * shape[1]
+        tile_n = (shape[0] // grid[0]) * (shape[1] // grid[1])
+        caps = (min(cfg.max_features, n),
+                min(spec.max_features_per_tile, tile_n),
+                min(spec.max_candidates_per_tile, tile_n))
+        memo_key = ("tiled", tuple(shape), grid, str(dtype))
+        if cfg.auto_regrow:
+            with self._lock:
+                got = self._grown.get(memo_key)
+            if got:
+                caps = tuple(max(c, min(g, lim)) for c, g, lim in
+                             zip(caps, got, (n, tile_n, tile_n)))
+        return caps, memo_key
+
+    def _grow_tiled(self, caps, shape, grid, out, kind: str):
+        """One regrow step per overflowing level — the tile capacities on
+        tile overflow, ``max_features`` on merge overflow, each up to its
+        own ceiling — or ``None`` when nothing may grow."""
+        cfg = self.config
+        tile_of, merge_of = bool(out.tile_overflow), bool(out.merge_overflow)
+        if not (tile_of or merge_of) or not cfg.auto_regrow:
+            return None
+        n = shape[0] * shape[1]
+        tile_n = (shape[0] // grid[0]) * (shape[1] // grid[1])
+        ceil_mf, _ = self._ceilings(n)
+        ceil_tf, ceil_tk = self._ceilings(tile_n)
+        mf, tf, tk = caps
+        fac = cfg.regrow_factor
+        new = (min(mf * fac, ceil_mf) if merge_of else mf,
+               min(tf * fac, ceil_tf) if tile_of else tf,
+               min(tk * fac, ceil_tk) if tile_of else tk)
+        if new == tuple(caps):
+            return None   # at the ceilings: residual overflow is reported
+        with self._lock:
+            self.regrow_log.append({"kind": kind, "from": tuple(caps),
+                                    "to": new})
+        return new
+
+    def _remember(self, memo_key, caps) -> None:
+        with self._lock:
+            got = self._grown.get(memo_key)
+            if got is None or got < caps:
+                self._grown[memo_key] = caps
+
+    def _tiled_result(self, out, caps, attempts: int, grid, truncate_value,
+                      delta=None) -> PHResult:
+        mf, tf, tk = caps
+        # final_max_candidates reports the per-tile candidate capacity
+        # (the knob that regrows on the tiled path).
+        stats = RegrowStats(attempts, mf, tk, bool(out.tile_overflow)
+                            or bool(out.merge_overflow))
+        eff = self.config.replace(
+            max_features=mf,
+            tile=self._tile_spec().replace(
+                grid=grid, max_features_per_tile=tf,
+                max_candidates_per_tile=tk))
+        return PHResult(out.diagram, eff, stats, truncate_value, delta)
+
+    def _threshold_tensor(self, truncate_value, dtype):
+        if truncate_value is None:
+            return None
+        return torch.tensor(truncate_value, dtype=threshold_dtype(dtype),
+                            device=self.device)
+
+    def run_tiled(self, image, truncate_value=None, *, grid=None
+                  ) -> PHResult:
+        """Halo-tiled PH of one (possibly device-exceeding) 2D image.
+
+        ``image`` is a host 2D array or tensor, a **tile provider**
+        (``shape`` / ``dtype`` / ``halo_tile(t, grid, fill=...)``, e.g.
+        :class:`repro_torch.data.astro.AstroImage`: tiles are generated
+        and staged one at a time, and the threshold comes from
+        :meth:`provider_threshold`), or a
+        :class:`repro_torch.core.tiling.StagedTiles` from
+        :meth:`stage_tiles` (pass the threshold: there is no image to
+        derive it from).  Bit-identical to :meth:`run` with
+        ``candidate_mode="exact"``.  ``grid`` overrides the config's
+        :class:`TileSpec` grid (chosen from ``max_tile_pixels`` when both
+        are None).  Overflow regrows per level: tile capacities toward the
+        tile pixel count on tile overflow, ``max_features`` toward the
+        image pixel count on seam-merge overflow; the result is memoized
+        per ``("tiled", shape, grid, dtype)``.
+        """
+        from repro_torch.core.tiling import StagedTiles
+        cfg = self.config
+        if cfg.candidate_mode != "exact":
+            raise ValueError("run_tiled supports candidate_mode='exact' "
+                             "only (the paper-literal distillation has no "
+                             "tiled equivalence proof)")
+        source, shape, grid, dtype, truncate_value = self._tiled_source(
+            image, truncate_value, grid, upload=True)
+        truncated = truncate_value is not None
+        tv = self._threshold_tensor(truncate_value, dtype)
+        caps, memo_key = self._tiled_capacities(shape, grid, dtype)
+        attempts = 0
+        while True:
+            if isinstance(source, StagedTiles):
+                plan = self.tiled_stacks_plan(shape, dtype, grid, *caps,
+                                              truncated)
+                out = plan(source.pvals, source.pgidx, tv)
+            else:
+                plan = self.tiled_plan(shape, dtype, grid, *caps, truncated)
+                out = plan(source, tv)
+            if attempts >= cfg.max_regrows:
+                break
+            new = self._grow_tiled(caps, shape, grid, out, "tiled")
+            if new is None:
+                break
+            caps, attempts = new, attempts + 1
+        if attempts:
+            self._remember(memo_key, caps)
+        return self._tiled_result(out, caps, attempts, grid, truncate_value)
+
+    def run_delta(self, image, truncate_value=None, *, grid=None
+                  ) -> PHResult:
+        """Delta-recompute tiled PH of one frame against the engine's frame
+        store — **bit-identical** to :meth:`run_tiled` on the same frame,
+        at O(changed area) compute for near-duplicate frames.
+
+        ``image`` takes the forms :meth:`run_tiled` takes.  The frame's
+        per-tile content-hash grid
+        (:func:`repro_torch.core.delta.frame_digests`) is classified
+        against the :class:`repro_torch.cache.DiagramCache`:
+
+        * **full hit** — the cached :class:`PHResult` returns without
+          touching the device;
+        * **partial hit** — phases A+B re-run for the dirty tiles only,
+          the fresh rows are scattered into a copy of the cached
+          :class:`TileBoundaryState`, and the seam merge replays;
+        * **miss** — every tile is dirty and the same scatter runs against
+          an all-zeros base, so cold and warm paths share one program.
+
+        With ``config.delta`` absent or disabled this is :meth:`run_tiled`
+        with ``delta.hit == "cold"``.  ``PHResult.delta`` carries a
+        :class:`repro_torch.core.delta.DeltaStats`.  Regrow mirrors
+        :meth:`run_tiled` and shares its memo; a tile-capacity regrow
+        invalidates the cached state (its arrays are capacity-shaped), a
+        merge-only regrow keeps the fresh rows and replays only the merge.
+        """
+        from repro_torch.cache import DiagramCache, FrameCacheEntry
+        from repro_torch.core import delta as delta_mod
+        cfg = self.config
+        dspec = cfg.delta
+        if dspec is None or not dspec.enabled:
+            res = self.run_tiled(image, truncate_value, grid=grid)
+            n_t = int(np.prod(res.config.tile.grid))
+            return dataclasses.replace(
+                res, delta=delta_mod.DeltaStats(n_t, n_t, "cold"))
+        if cfg.candidate_mode != "exact":
+            raise ValueError("run_delta supports candidate_mode='exact' "
+                             "only (it rides the tiled path)")
+        # A host frame stays on the host: hashing and the dirty windows
+        # never bounce through device memory.
+        source, shape, grid, dtype, truncate_value = self._tiled_source(
+            image, truncate_value, grid, upload=False)
+        n_tiles = grid[0] * grid[1]
+        tile_shape = (shape[0] // grid[0] + 2, shape[1] // grid[1] + 2)
+        truncated = truncate_value is not None
+        tv = self._threshold_tensor(truncate_value, dtype)
+        tv_key = float(truncate_value) if truncated else None
+
+        digests, raw = delta_mod.frame_digests(
+            source, grid, algo=dspec.hash_algo, with_bytes=dspec.verify,
+            filtration=cfg.filtration)
+        # Everything that must match for a cached state row to be
+        # bit-reusable (threshold included: it filters inside phase B).
+        context = (tuple(shape), grid, str(dtype), dspec.hash_algo, tv_key,
+                   cfg.plan_key())
+        with self._lock:
+            if self._delta_cache is None:
+                self._delta_cache = DiagramCache(dspec.cache_entries)
+            cache = self._delta_cache
+
+        caps, memo_key = self._tiled_capacities(shape, grid, dtype)
+        kind, entry, dirty_mask = cache.lookup(
+            context, digests, capacities=caps, tile_bytes=raw)
+        if kind == "hit":
+            return dataclasses.replace(
+                entry.result,
+                delta=delta_mod.DeltaStats(n_tiles, 0, "full"))
+        if kind == "partial":
+            dirty, base = np.flatnonzero(dirty_mask), entry.state
+        else:
+            dirty, base = np.arange(n_tiles), None
+
+        attempts, fresh = 0, None
+        while True:
+            mf, tf, tk = caps
+            bucket = delta_mod.dirty_bucket(len(dirty), n_tiles)
+            if base is None:
+                base = delta_mod.empty_state(shape, grid, dtype, tf, tk,
+                                             device=self.device)
+            if fresh is None:
+                pv, pg, slots = delta_mod.dirty_stacks(
+                    source, grid, dirty, bucket, cfg.filtration,
+                    device=self.device)
+                ab = self.delta_ab_plan(tile_shape, dtype, bucket, tf, tk,
+                                        truncated)
+                fresh = ab(pv, pg, tv)
+            mg = self.delta_merge_plan(shape, dtype, grid, bucket, mf, tf,
+                                       tk, truncated)
+            new_state, out = mg(base, fresh, slots, tv)
+            if attempts >= cfg.max_regrows:
+                break
+            new = self._grow_tiled(caps, shape, grid, out, "delta")
+            if new is None:
+                break
+            if new[1:] != caps[1:]:
+                # Tile capacities grew: the cached and fresh state arrays
+                # are the wrong shape — recompute every tile.
+                dirty, base, fresh, kind = np.arange(n_tiles), None, None, \
+                    "miss"
+            caps, attempts = new, attempts + 1
+        if attempts:
+            self._remember(memo_key, caps)
+
+        hit = "partial" if kind == "partial" else "miss"
+        dstats = delta_mod.DeltaStats(n_tiles, int(len(np.unique(dirty))),
+                                      hit)
+        result = self._tiled_result(out, caps, attempts, grid,
+                                    truncate_value, dstats)
+        # put() on an existing (context, digests) key replaces in place.
+        cache.put(context, FrameCacheEntry(
+            digests=digests, state=new_state, result=result,
+            capacities=caps, tile_bytes=raw))
+        return result
+
+    def run_sequence(self, frames, truncate_values=None, *, grid=None):
+        """Generator: :meth:`run_delta` over an iterable of frames (the
+        survey-stream entry point).  ``truncate_values`` is a scalar for
+        every frame or a per-frame sequence; yields one :class:`PHResult`
+        per frame as it completes."""
+        for i, frame in enumerate(frames):
+            if truncate_values is None:
+                tv = None
+            elif np.isscalar(truncate_values):
+                tv = truncate_values
+            else:
+                tv = truncate_values[i]
+            yield self.run_delta(frame, tv, grid=grid)
+
+    def delta_cache_stats(self) -> dict:
+        """Snapshot of the delta frame store's counters (zeros before the
+        first ``run_delta`` call)."""
+        from repro_torch.cache import CacheStats
+        with self._lock:
+            cache = self._delta_cache
+        return (CacheStats() if cache is None else cache.stats).snapshot()
 
     # -- diagram distances -------------------------------------------------
 

@@ -309,6 +309,70 @@ def test_engine_paths_launch_the_new_kernels():
     assert sw[1, 3] == 0 and bn[1, 3] == 0
 
 
+def _same_diagrams(a, b):
+    for x, y in zip(diagram_to_numpy(a), diagram_to_numpy(b)):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+def test_run_tiled_on_card_equals_run_and_cpu():
+    """512² through ``run_tiled`` (a (4, 4) grid of 128² tiles) on the
+    card: the best-edge kernel serves the seam merge, and the diagram
+    equals ``run`` on the card and ``run_tiled`` on the CPU."""
+    _need_cuda()
+    from repro_torch.ph import TileSpec
+    frame = astro.generate_image(4, 512)
+    cfg = PHConfig(merge_impl="boruvka", phase_c_impl="fused",
+                   filter_level="filter_std",
+                   tile=TileSpec(max_tile_pixels=128 * 128))
+    kc.LIBRARY.launches = 0
+    tiled = PHEngine(cfg).run_tiled(frame)
+    assert tiled.config.tile.grid == (4, 4)
+    assert kc.LIBRARY.launches > 0 and tiled.diagram.birth.is_cuda
+    mf = tiled.config.max_features
+    whole = PHEngine(cfg.replace(max_features=mf,
+                                 regrow_features_ceiling=mf))
+    _same_diagrams(whole.run(frame, tiled.threshold).diagram, tiled.diagram)
+    cpu = PHEngine(cfg, device="cpu").run_tiled(frame)
+    _same_diagrams(cpu.diagram, tiled.diagram)
+    staged = PHEngine(cfg).stage_tiles(astro.AstroImage(4, 512))
+    assert staged.pvals.is_cuda
+    _same_diagrams(PHEngine(cfg).run_tiled(staged, tiled.threshold)
+                   .diagram, tiled.diagram)
+
+
+@pytest.mark.cuda
+def test_seam_round_kernel_matches_plain_version(monkeypatch):
+    """Every Boruvka round of a seam merge on the card, held bitwise to
+    the plain version on the same inputs; delta runs equal cold runs."""
+    _need_cuda()
+    from repro_torch.data.astro import FrameSequence
+    from repro_torch.kernels.ph_phase_c import ops as oc
+    from repro_torch.ph import DeltaSpec, TileSpec
+    rounds = []
+    real = kc.best_edge_reduce
+
+    def check(key, ra, rb, nv):
+        got = real(key, ra, rb, nv)
+        want = rc.best_edge_reduce(key, ra, rb, nv)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        rounds.append(key.shape[0])
+        return got
+
+    monkeypatch.setattr(oc.kernel, "best_edge_reduce", check)
+    fs = FrameSequence(6, 256, grid=(4, 4), dirty_frac=0.2, stamp=5)
+    cfg = PHConfig(merge_impl="boruvka", delta=DeltaSpec(),
+                   tile=TileSpec(grid=(4, 4)))
+    eng = PHEngine(cfg)
+    tv = astro.AstroImage(6, 256).filter_threshold("filter_std")
+    hits = []
+    for i in (0, 1, 1):
+        res = eng.run_delta(fs.frame(i), tv)
+        hits.append(res.delta.hit)
+        _same_diagrams(eng.run_tiled(fs.frame(i), tv).diagram, res.diagram)
+    assert hits == ["miss", "partial", "full"] and rounds
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])

@@ -272,7 +272,8 @@ def test_default_device_is_cuda_and_never_falls_back():
 
 def test_port_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.ph, repro_torch.core, "
-            "repro_torch.data.astro; "
+            "repro_torch.data.astro, repro_torch.cache, "
+            "repro_torch.core.tiling, repro_torch.core.delta; "
             "import repro_torch.kernels.ph_phase_a, "
             "repro_torch.kernels.ph_phase_c, repro_torch.kernels.maxpool, "
             "repro_torch.kernels.ph_distance, "

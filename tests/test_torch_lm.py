@@ -84,7 +84,7 @@ def test_configs_match_reference():
             jbase.SHAPES[name])
     with pytest.raises(ValueError, match="not ported"):
         tbase.get_config("rwkv6_3b")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         Model(jbase.get_smoke_config("llama4_scout_17b_a16e"), device="cpu")
 
 
