@@ -99,7 +99,29 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
              ``torch.profiler`` (device busy ms by kind, idle share);
 16. lm_forward — ``Model.loss_fn`` forward at 2 x 2048 tokens: 40 flash
              launches, the loss equal to the plain-attention run's within
-             ``LOSS_ATOL``, which the hidden-tile control must miss.
+             ``LOSS_ATOL``, which the hidden-tile control must miss;
+17. pipeline — ``run_distributed`` (the paper's Variant 1-3 job) over a
+             survey of astro frames: ids 0-15 at sizes cycling 1024, 2048,
+             4096, 2048 and id 16 at ``PIPELINE_TILED``² routed tiled by
+             ``TileSpec(max_tile_pixels=4096 * 4096)``, ``filter_std``,
+             ``pow2`` buckets, Boruvka-fused, ``part_LPT``; once
+             synchronous and once with ``OverlapSpec()``: phase-A and
+             best-edge launches (> 0) in each run, every image's diagram
+             equal to the port's own ``run`` / ``run_tiled`` at the same
+             threshold and capacities; at each whole size, phase A's input
+             and the first Boruvka round captured from that run and held to
+             the plain versions bitwise, and the diagram to a
+             ``use_pallas=False`` engine's; the tiled frame's first seam
+             round likewise; the runs' summaries and diagrams equal, the
+             overlap counters (no dispatch-thread sync, one upload group
+             per whole round, every round resolved on the harvest thread,
+             one result copy per round); a staged
+             round's ``load_round`` + ``begin_staged`` under
+             ``torch.cuda.set_sync_debug_mode("error")``; a one-round
+             failure injection and a work-log resume equal to the clean
+             run; wall ms of each run, the loader thread's host ms and the
+             host ms spent in each round's compute; a result's copy to the
+             host by ``start_d2h`` against ``.cpu()``, in turns.
 
 Every kernel is timed two ways: ``ms`` is one call's CUDA-event time
 (``cuda_ms``: the host's launch overhead falls inside the interval when it
@@ -147,6 +169,14 @@ N_DIRS = 16
 # The main path's engine configuration (phases 5-10).
 MAIN_CONFIG = dict(merge_impl="boruvka", phase_c_impl="fused",
                    filter_level="filter_std")
+# The pipeline phase's survey: ids 0-15 at sizes cycling PIPELINE_SIZES,
+# then one PIPELINE_TILED² frame above the tile budget (a tiled round of
+# 4096² tiles).
+PIPELINE_SIZES = (1024, 2048, 4096, 2048)
+PIPELINE_WHOLE = 16
+PIPELINE_TILED = 8192
+PIPELINE_TILE_PIXELS = 4096 * 4096
+PIPELINE_FAIL_ROUND = 3         # dispatch sequence number that fails once
 BF16_OPS_PER_S = 989e12          # H100 SXM bfloat16 tensor cores, dense
 # flash_attention cases (B, H, KV, Sq, Skv, hd, causal, window): the six of
 # tests/test_kernels_flash_attention.py, then the LM's GQA 32/8 at hd 128
@@ -919,6 +949,326 @@ def phase_delta(frame, tiled) -> dict:
          best_edge_launches=launches, cache=engine.delta_cache_stats(),
          equals_cold_run_tiled=True)
     return {"launches": launches}
+
+
+def pipeline_survey() -> list:
+    """The pipeline phase's dataset as ``run_distributed`` takes it."""
+    return [(i, PIPELINE_SIZES[i % len(PIPELINE_SIZES)])
+            for i in range(PIPELINE_WHOLE)] + [(PIPELINE_WHOLE,
+                                                PIPELINE_TILED)]
+
+
+def chain_capacities(engine, f: int, n: int) -> tuple[int, int]:
+    """The step of ``engine``'s regrow chain for an ``n``-pixel image whose
+    diagram capacity is ``f``: ``(max_features, max_candidates)`` as the
+    pipeline dispatched them (both grow together from the config's)."""
+    caps = engine.initial_capacities(n)
+    while caps[0] < f:
+        nxt = engine.grow_capacities(*caps, n)
+        if nxt == caps:
+            break
+        caps = nxt
+    if caps[0] != f:
+        raise AssertionError(f"capacity {f} is not on the regrow chain")
+    return caps
+
+
+class capture_kernels:
+    """While active (and ``on``), the first input of the phase-A kernel
+    and of the best-edge kernel, cloned, under ``"phase_a"`` and
+    ``"best_edge"``; the kernels run as they would."""
+
+    def __init__(self, on: bool):
+        from repro_torch.kernels.ph_phase_a import ops as oa
+        from repro_torch.kernels.ph_phase_c import ops as oc
+        self.on, self.oa, self.oc, self.got = on, oa, oc, {}
+
+    def __enter__(self):
+        if self.on:
+            ka, kc = self.oa.kernel.phase_a, self.oc.kernel.best_edge_reduce
+            self.orig = ka, kc
+
+            def phase_a(x, **kw):
+                self.got.setdefault("phase_a", (x.clone(), kw["strip_rows"]))
+                return ka(x, **kw)
+
+            def best_edge(key, ra_, rb_, nv):
+                self.got.setdefault("best_edge", (key.clone(), ra_.clone(),
+                                                  rb_.clone(), nv))
+                return kc(key, ra_, rb_, nv)
+
+            self.oa.kernel.phase_a = phase_a
+            self.oc.kernel.best_edge_reduce = best_edge
+        return self.got
+
+    def __exit__(self, *exc):
+        if self.on:
+            self.oa.kernel.phase_a, self.oc.kernel.best_edge_reduce = \
+                self.orig
+
+
+def check_best_edge(cap, err) -> dict:
+    """The best-edge kernel against its plain version, bitwise, on the
+    round ``capture_kernels`` caught."""
+    import torch
+    from repro_torch.kernels.ph_phase_c import kernel as kc
+    from repro_torch.kernels.ph_phase_c import ref as rc
+    key, ra_, rb_, nv = cap["best_edge"]
+    b_k, w_k = kc.best_edge_reduce(key, ra_, rb_, nv)
+    b_r, w_r = rc.best_edge_reduce(key, ra_, rb_, nv)
+    e = max(max_abs_diff(b_k, b_r), max_abs_diff(w_k, w_r))
+    err["ph_phase_c"] = max(err["ph_phase_c"], e)
+    if not (torch.equal(b_k, b_r) and torch.equal(w_k, w_r)):
+        raise AssertionError(f"best_edge kernel != plain on the pipeline's "
+                             f"round of {key.numel()} edges")
+    return dict(edges=key.numel(), nv=nv, max_abs_err=e, bitwise_equal=True)
+
+
+def d2h_turns(tree, reps: int = 20) -> dict:
+    """Host ms of one device-to-host copy of ``tree``: ``start_d2h`` (pinned,
+    one side stream, one event) against ``.cpu()`` per leaf, in turns; the
+    two copies must be equal."""
+    import torch
+    from repro_torch.ph.overlap import map_tensors, start_d2h
+    fns = {"start_d2h": lambda: start_d2h(tree).result(),
+           "cpu": lambda: map_tensors(lambda t: t.cpu(), tree)}
+    ms = dict.fromkeys(fns, 0.0)
+    for _ in range(reps):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            ms[k] += (time.perf_counter() - t0) * 1e3 / reps
+    a, b = (fn() for fn in fns.values())
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("start_d2h copy != .cpu()")
+    return {**ms, "bytes": sum(t.numel() * t.element_size() for t in a)}
+
+
+def phase_pipeline(reset_counts, read_counts, err) -> dict:
+    """Phase 17: the distributed pipeline over a survey of astro frames.
+
+    ``run_distributed`` of :func:`pipeline_survey` twice — synchronous,
+    then with ``OverlapSpec()`` — through ``PHEngine`` on the card.  The
+    executor's loads and results are observed (never changed) to hold
+    every image's diagram to ``run`` (whole frames: a fresh engine at the
+    pipeline's capacities) or ``run_tiled`` (the staged tiles) at the
+    threshold the loader computed, and the kernels to their plain versions
+    on the inputs of those runs.  Then a staged round under sync
+    debug mode ``"error"``, and a failure injection plus a work-log
+    resume over the survey's 1024² and 2048² frames.
+    """
+    import torch
+    from repro_torch.distributed.context import single_device_ctx
+    from repro_torch.ph import OverlapSpec, PHConfig, PHEngine, TileSpec
+    from repro_torch.ph.overlap import PendingResult
+    from repro_torch.pipeline import driver
+    from repro_torch.pipeline.executor import ShardedPHExecutor
+    from repro_torch.pipeline.scheduler import BucketRound, ImageMeta
+
+    survey = pipeline_survey()
+    cfg = PHConfig(**MAIN_CONFIG, bucket_rounding="pow2",
+                   tile=TileSpec(max_tile_pixels=PIPELINE_TILE_PIXELS))
+    loads: dict = {}          # id -> (host image, threshold), sync run
+    tiles: dict = {}          # id -> (StagedTiles, threshold), sync run
+    diags: dict = {"sync": {}, "overlap": {}}
+    host_ms: dict = {}
+    label = ["sync"]
+    orig = (ShardedPHExecutor._load_one, ShardedPHExecutor.load_self_tiled,
+            ShardedPHExecutor.begin_staged)
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            host_ms[label[0]][key] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    def load_one(self, meta):
+        img, t = timed(orig[0], "load_ms")(self, meta)
+        if label[0] == "sync":
+            loads[meta.image_id] = (img, t)
+        return img, t
+
+    def load_tiled(self, rnd, meta):
+        staged = timed(orig[1], "tiled_stage_ms")(self, rnd, meta)
+        if label[0] == "sync":
+            tiles[meta.image_id] = (staged.tiles, staged.threshold)
+        return staged
+
+    def begin_staged(self, staged):
+        name = label[0]
+        pending = timed(orig[2], "compute_ms")(self, staged)
+
+        def finish():
+            out = timed(pending.resolve, "compute_ms")()
+            diags[name].update(out)
+            return out
+
+        return PendingResult(finish)
+
+    def drive(engine, name):
+        label[0] = name
+        host_ms[name] = dict(load_ms=0.0, threshold_ms=0.0,
+                             tiled_stage_ms=0.0, compute_ms=0.0)
+        # The Variant-2 statistic inside each load, timed where it runs.
+        engine.auto_threshold = timed(engine.auto_threshold, "threshold_ms")
+        before = engine.overlap_counters.snapshot()
+        reset_counts()
+        res, ms = wall_ms(lambda: engine.run_distributed(survey))
+        launches = read_counts()
+        after = engine.overlap_counters.snapshot()
+        if min(launches["ph_phase_a"], launches["ph_phase_c"]) <= 0:
+            raise AssertionError(f"pipeline ({name}) missed a kernel: "
+                                 f"{launches}")
+        if res.failures or len(res.diagrams) != len(survey):
+            raise AssertionError(f"pipeline ({name}) incomplete: {res}")
+        return res, ms, launches, {k: after[k] - before[k] for k in after}
+
+    ShardedPHExecutor._load_one = load_one
+    ShardedPHExecutor.load_self_tiled = load_tiled
+    ShardedPHExecutor.begin_staged = begin_staged
+    try:
+        sync = PHEngine(cfg)
+        res_s, sync_ms, launches_s, count_s = drive(sync, "sync")
+        over = PHEngine(cfg.replace(overlap=OverlapSpec()))
+        res_o, over_ms, launches_o, count_o = drive(over, "overlap")
+    finally:
+        (ShardedPHExecutor._load_one, ShardedPHExecutor.load_self_tiled,
+         ShardedPHExecutor.begin_staged) = orig
+    del sync.auto_threshold, over.auto_threshold      # the timing wrappers
+    if res_o.diagrams != res_s.diagrams:
+        raise AssertionError("overlapped pipeline summaries != synchronous")
+    if any(d["overflow"] for d in res_s.diagrams.values()):
+        raise AssertionError("a pipeline diagram overflows after regrow")
+    for i in range(len(survey)):
+        if not same_diagram(diags["sync"][i], diags["overlap"][i]):
+            raise AssertionError(f"image {i}: overlapped diagram != "
+                                 f"synchronous")
+    whole_rounds = res_s.rounds - 1
+    if whole_rounds != PIPELINE_WHOLE or res_o.rounds != res_s.rounds:
+        raise AssertionError(f"rounds {res_s.rounds}/{res_o.rounds}: one "
+                             f"executor gives one round per image")
+    want_counts = dict(h2d_transfers=whole_rounds, dispatch_syncs=0,
+                       harvest_syncs=res_o.rounds, d2h_streams=res_o.rounds,
+                       donation_replays=0)
+    if any(count_o[k] != v for k, v in want_counts.items()):
+        raise AssertionError(f"overlap counters {count_o} != {want_counts}")
+    if count_s["dispatch_syncs"] != res_s.rounds \
+            or count_s["harvest_syncs"]:
+        raise AssertionError(f"synchronous counters {count_s}")
+
+    # Every image against the port's own single-image entry points, at the
+    # capacities the pipeline ended on.  The first frame of each whole size
+    # and the tiled frame also hold the kernels to their plain versions on
+    # the inputs the path gives them (phase A's image and the first, the
+    # largest, Boruvka round, captured), and each whole size's diagram to a
+    # use_pallas=False engine's.
+    t0 = time.perf_counter()
+    held, d2h = {}, {}
+    for i, (img, t) in sorted(loads.items()):
+        d = diags["sync"][i]
+        mf, mc = chain_capacities(sync, d.birth.shape[0], img.size)
+        one_cfg = cfg.replace(max_features=mf, regrow_features_ceiling=mf,
+                              max_candidates=mc)
+        first = img.shape[0] not in held
+        with capture_kernels(first) as cap:
+            one = PHEngine(one_cfg).run(img, t)
+        if one.regrow.attempts or not same_diagram(d, one.diagram):
+            raise AssertionError(f"image {i}: pipeline != run")
+        if not first:
+            continue
+        plain = PHEngine(one_cfg.replace(use_pallas=False)).run(img, t)
+        if plain.regrow.attempts or not same_diagram(d, plain.diagram):
+            raise AssertionError(f"image {i}: pipeline != the plain engine")
+        x, s_rows = cap["phase_a"]
+        check_phase_a(x, s_rows, f"pipeline image {i}", err)
+        held[img.shape[0]] = dict(image=i, max_features=mf,
+                                  max_candidates=mc,
+                                  phase_a_shape=list(x.shape),
+                                  best_edge=check_best_edge(cap, err),
+                                  plain_engine_equal=True)
+        d2h[f"{img.shape[0]}"] = d2h_turns(one.diagram)
+    for i, (staged, t) in tiles.items():
+        with capture_kernels(True) as cap:
+            one = sync.run_tiled(staged, t)
+        if one.regrow.attempts or not same_diagram(diags["sync"][i],
+                                                   one.diagram):
+            raise AssertionError(f"image {i}: pipeline != run_tiled")
+        held["seam"] = dict(image=i, best_edge=check_best_edge(cap, err))
+        d2h[f"{PIPELINE_TILED} tiled"] = d2h_turns(one.diagram)
+    per_image_ms = (time.perf_counter() - t0) * 1e3
+    if sorted(k for k in held if k != "seam") != sorted(
+            set(PIPELINE_SIZES)) or "seam" not in held:
+        raise AssertionError(f"kernels not held at every size: {held}")
+    tiled_grid = list(sync._resolve_grid((PIPELINE_TILED,) * 2,
+                                         cfg.tile))
+    del loads, tiles
+
+    # A staged round's dispatch side under sync debug mode "error": its
+    # load and begin enqueue uploads and events only (no other thread
+    # runs here; the mode is process-wide).
+    pool = ShardedPHExecutor(over, single_device_ctx())
+    meta = ImageMeta(1, (PIPELINE_SIZES[1],) * 2)
+    rnd = BucketRound("whole", meta.shape, ((0, meta),))
+    h2d = over.overlap_counters.snapshot()["h2d_transfers"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = pool.begin_staged(pool.load_round(rnd))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = pending.resolve()[1]
+    if driver._summarize(got) != res_s.diagrams[1] or \
+            over.overlap_counters.snapshot()["h2d_transfers"] != h2d + 1:
+        raise AssertionError("begin_staged round != the pipeline's image 1")
+
+    # One injected failure, then a resume from the work log, over the
+    # survey's 1024² and 2048² frames; both equal the clean run.
+    subset = [(i, s) for i, s in survey if s <= 2048]
+    log = ROOT / "build" / "pipeline_worklog.jsonl"
+    log.parent.mkdir(parents=True, exist_ok=True)
+    log.unlink(missing_ok=True)
+    failing = PHEngine(cfg.replace(overlap=OverlapSpec()))
+    res_f, fail_ms = wall_ms(lambda: failing.run_distributed(
+        subset, work_log=log,
+        failure_injector=driver.FailureInjector([PIPELINE_FAIL_ROUND])))
+    resumer = PHEngine(cfg.replace(overlap=OverlapSpec()))
+    res_r = resumer.run_distributed(subset, work_log=log)
+    want = {i: res_s.diagrams[i] for i, _ in subset}
+    logged = [json.loads(x)["image_id"] for x in
+              log.read_text().splitlines()]
+    log.unlink()
+    if res_f.failures != 1 or res_f.diagrams != want:
+        raise AssertionError(f"failure run: {res_f.failures} failures, "
+                             f"equal={res_f.diagrams == want}")
+    if res_r.rounds or res_r.diagrams != want or sorted(logged) != \
+            sorted(want) or resumer.overlap_counters.snapshot()[
+                "h2d_transfers"]:
+        raise AssertionError("work-log resume recomputed or differs")
+
+    emit("pipeline", survey=[list(x) for x in survey],
+         config=json.loads(cfg.to_json()), strategy="part_LPT",
+         tiled_grid=tiled_grid, rounds=res_s.rounds,
+         whole_rounds=whole_rounds,
+         objects=sum(d["count"] for d in res_s.diagrams.values()),
+         tiled_count=res_s.diagrams[PIPELINE_WHOLE]["count"],
+         sync_wall_ms=sync_ms, overlap_wall_ms=over_ms,
+         loader_host_ms=host_ms, counters={"sync": count_s,
+                                           "overlap": count_o},
+         launches={"sync": launches_s, "overlap": launches_o},
+         regrow_log=[[r["kind"], list(r["from"]), list(r["to"])]
+                     for r in sync.regrow_log],
+         per_image_check_ms=per_image_ms, kernels_vs_plain=held,
+         d2h_ms=d2h,
+         failure={"fail_round": PIPELINE_FAIL_ROUND,
+                  "images": len(subset), "failures": res_f.failures,
+                  "rounds": res_f.rounds, "wall_ms": fail_ms,
+                  "resume_rounds": res_r.rounds},
+         sync_debug_error_begin_staged=True, equals_run=True,
+         overlap_equals_sync=True, resume_equals_clean=True)
+    return {"launches": launches_s}
 
 
 def device_profile(fn) -> dict:
@@ -1743,7 +2093,11 @@ def main() -> int:
     # -- 14-16. flash attention, LM serving, LM forward ----------------------
     fa = phase_flash_attention(dev, rng, err)
     lm = phase_lm_serve(dev, reset_counts, read_counts)
-    phase_lm_forward(dev, lm["params"], reset_counts, read_counts)
+    phase_lm_forward(dev, lm.pop("params"), reset_counts, read_counts)
+    torch.cuda.empty_cache()
+
+    # -- 17. the distributed pipeline ----------------------------------------
+    pipeline = phase_pipeline(reset_counts, read_counts, err)
 
     # -- kernel table, card, result ----------------------------------------
     kernels = [
@@ -1751,6 +2105,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/ph_phase_a/csrc/phase_a.cu",
          "replaces": "src/repro/kernels/ph_phase_a/kernel.py:52",
          "launches": launches["ph_phase_a"],
+         "pipeline_launches": pipeline["launches"]["ph_phase_a"],
          "max_abs_err": err["ph_phase_a"],
          "ms": a_ms, "device_ms": a_dev_ms, "plain_ms": a_plain_ms,
          "bound_ms": a_bound_ms, "bound_by": "bytes", "library_ms": None,
@@ -1761,6 +2116,7 @@ def main() -> int:
          "launches": launches["ph_phase_c"],
          "tiled_launches": tiled["launches"]["ph_phase_c"],
          "delta_launches": delta["launches"],
+         "pipeline_launches": pipeline["launches"]["ph_phase_c"],
          "max_abs_err": err["ph_phase_c"],
          "ms": e_ms, "device_ms": e_dev_ms, "plain_ms": e_plain_ms,
          "bound_ms": e_bound_ms, "bound_by": "bytes", "library_ms": e_lib_ms,

@@ -2,10 +2,9 @@
 
 The port's own copy of ``repro.ph.config``: the field names, defaults and
 validation are unchanged, so a JSON written by one package loads in the
-other with equal fields and an equal ``stage_signature()``.  Fields the
-port does not act on yet (serving, overlap, autotune) are carried as
-data; the engine raises where one of them would change what it
-computes.
+other with equal fields and an equal ``stage_signature()``, and
+:meth:`PHConfig.from_flags` reads the same command-line flags.  Fields the
+port does not act on yet (serving, autotune) are carried as data.
 
 ``use_pallas`` keeps its name for that round trip.  In the port it selects
 the hand-written CUDA kernels: ``None`` (or ``True``) runs them on CUDA
@@ -18,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import json
+from typing import Any
 
 from repro_torch.core.packed_keys import (  # noqa: F401  (single source)
     FILTRATIONS,
@@ -141,10 +141,13 @@ class ServeSpec:
 
 @dataclasses.dataclass(frozen=True)
 class OverlapSpec:
-    """Host<->device overlap policy (staging ring, donation, async
-    overflow, async harvest).  Carried as data: the overlap engine is still
-    to be ported (ROADMAP.md, queue 1 item 3); every overlapped path is
-    bit-identical to the synchronous one the port runs."""
+    """Host<->device overlap policy (:mod:`repro_torch.ph.overlap`):
+    ``staging_depth`` rounds in flight ahead of the harvest, ``donate``
+    (engine-built batches staged in reused pool buffers), ``async_overflow``
+    (pinned uploads on a copy stream, the computation and overflow check
+    deferred to ``resolve()``, results streamed to pinned host memory) and
+    ``async_harvest`` (the pipeline resolves rounds on a harvest thread).
+    Every overlapped path is bit-identical to the synchronous one."""
 
     enabled: bool = True
     staging_depth: int = 2
@@ -436,6 +439,103 @@ class PHConfig:
                 else None)
 
     # -- construction / serialization -------------------------------------
+
+    @classmethod
+    def from_flags(cls, args: Any, **overrides) -> "PHConfig":
+        """Build from an argparse ``Namespace`` (or any attribute bag), as
+        ``repro.ph.PHConfig.from_flags`` does.
+
+        Recognized attributes (all optional): ``max_features``,
+        ``max_candidates``, ``candidate_mode``, ``filtration``,
+        ``merge_impl``, ``merge_keys``, ``phase_a_impl``, ``strip_rows``,
+        ``phase_c_impl``, ``phase_c_block``, ``tournament_width``,
+        ``autotune``, ``autotune_cache``, ``filter`` or ``filter_level``,
+        ``dtype``, ``use_pallas``, ``interpret``,
+        ``no_regrow``/``auto_regrow``, ``max_regrows``, ``regrow_factor``,
+        the regrow ceilings, ``bucket_rounding``,
+        ``prefetch_rounds``/``no_prefetch``; tiling: ``tile``,
+        ``tile_grid``, ``tile_max_features``, ``tile_max_candidates``,
+        ``max_tile_pixels``; serving (carried as data): ``serve``,
+        ``serve_buckets`` (sizes or ``"HxW"`` strings), ``serve_batch_cap``,
+        ``serve_max_queue``, ``serve_tick_ms``, ``serve_admission``; delta:
+        ``delta``, ``delta_cache_entries``, ``delta_hash``,
+        ``delta_verify``; overlap: ``overlap``, ``overlap_depth``,
+        ``no_donate``, ``no_async_overflow``, ``no_async_harvest`` (each
+        sub-flag implies the spec).
+        """
+        kw: dict[str, Any] = {}
+        for name in ("max_features", "max_candidates", "candidate_mode",
+                     "filtration", "merge_impl", "merge_keys", "phase_a_impl",
+                     "strip_rows", "phase_c_impl", "phase_c_block",
+                     "tournament_width", "autotune", "autotune_cache",
+                     "dtype", "use_pallas", "interpret",
+                     "max_regrows", "auto_regrow", "regrow_factor",
+                     "regrow_features_ceiling", "regrow_candidates_ceiling",
+                     "bucket_rounding", "prefetch_rounds"):
+            v = getattr(args, name, None)
+            if v is not None:
+                kw[name] = v
+        level = getattr(args, "filter_level", None) or getattr(
+            args, "filter", None)
+        if level is not None:
+            kw["filter_level"] = FilterLevel(level)
+        if getattr(args, "no_regrow", False):
+            kw["auto_regrow"] = False
+        if getattr(args, "no_prefetch", False):
+            kw["prefetch_rounds"] = 0
+        tile_kw: dict[str, Any] = {}
+        for attr, field in (("tile_grid", "grid"),
+                            ("tile_max_features", "max_features_per_tile"),
+                            ("tile_max_candidates",
+                             "max_candidates_per_tile"),
+                            ("max_tile_pixels", "max_tile_pixels")):
+            v = getattr(args, attr, None)
+            if v is not None:
+                tile_kw[field] = v
+        if tile_kw.get("grid") is not None:
+            tile_kw["grid"] = parse_grid(tile_kw["grid"])
+        if tile_kw or getattr(args, "tile", False):
+            kw["tile"] = TileSpec(**tile_kw)
+        serve_kw: dict[str, Any] = {}
+        for attr, field in (("serve_buckets", "buckets"),
+                            ("serve_batch_cap", "batch_cap"),
+                            ("serve_max_queue", "max_queue"),
+                            ("serve_admission", "admission")):
+            v = getattr(args, attr, None)
+            if v is not None:
+                serve_kw[field] = v
+        tick_ms = getattr(args, "serve_tick_ms", None)
+        if tick_ms is not None:
+            serve_kw["tick_interval_s"] = float(tick_ms) / 1e3
+        if serve_kw.get("buckets") is not None:
+            serve_kw["buckets"] = tuple(
+                parse_grid(b) if isinstance(b, str) and "x" in b.lower()
+                else int(b) for b in serve_kw["buckets"])
+        if serve_kw or getattr(args, "serve", False):
+            kw["serve"] = ServeSpec(**serve_kw)
+        delta_kw: dict[str, Any] = {}
+        for attr, field in (("delta_cache_entries", "cache_entries"),
+                            ("delta_hash", "hash_algo"),
+                            ("delta_verify", "verify")):
+            v = getattr(args, attr, None)
+            if v is not None:
+                delta_kw[field] = v
+        if delta_kw or getattr(args, "delta", False):
+            kw["delta"] = DeltaSpec(**delta_kw)
+        overlap_kw: dict[str, Any] = {}
+        v = getattr(args, "overlap_depth", None)
+        if v is not None:
+            overlap_kw["staging_depth"] = int(v)
+        if getattr(args, "no_donate", False):
+            overlap_kw["donate"] = False
+        if getattr(args, "no_async_overflow", False):
+            overlap_kw["async_overflow"] = False
+        if getattr(args, "no_async_harvest", False):
+            overlap_kw["async_harvest"] = False
+        if overlap_kw or getattr(args, "overlap", False):
+            kw["overlap"] = OverlapSpec(**overlap_kw)
+        kw.update(overrides)
+        return cls(**kw)
 
     def to_json(self) -> str:
         d = dataclasses.asdict(self)

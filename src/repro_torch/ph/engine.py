@@ -23,12 +23,21 @@ Counterpart of ``repro.ph.engine`` for the whole-image path:
   ``max_features``);
 * **delta-PH** — :meth:`PHEngine.run_delta` / :meth:`run_sequence`
   against a frame store (:mod:`repro_torch.core.delta`,
-  :class:`repro_torch.cache.DiagramCache`): only dirty tiles recompute.
+  :class:`repro_torch.cache.DiagramCache`): only dirty tiles recompute;
+* **the overlap engine** — ``config.overlap``
+  (:mod:`repro_torch.ph.overlap`): :meth:`PHEngine.run_batch_async`
+  stages engine-built batches through pinned buffers of a
+  :class:`~repro_torch.ph.overlap.StagingPool` and defers the
+  computation, the overflow check and the regrow into ``resolve()``;
+  results stream to pinned host memory;
+* **the distributed pipeline** — :meth:`PHEngine.run_distributed` over a
+  :class:`repro_torch.distributed.context.DistContext` (one executor per
+  device; :mod:`repro_torch.pipeline`).
 
 The engine runs on the CUDA device unless the caller passes another
 ``device`` (the tests pass ``"cpu"``); without CUDA, ``PHEngine()`` raises
-instead of falling back.  The distributed pipeline, the overlap engine
-and serving are still to be ported (ROADMAP.md, queue 1).
+instead of falling back.  Serving is still to be ported (ROADMAP.md,
+queue 1).
 """
 from __future__ import annotations
 
@@ -46,7 +55,11 @@ from repro_torch.core import Diagram, batched_pixhomology, \
     num_candidates as core_num_candidates, pixhomology, stack_diagrams
 from repro_torch.core.packed_keys import check_finite, resolve_merge_keys
 from repro_torch.core.reference import diagram_to_array
-from repro_torch.ph.config import FilterLevel, PHConfig, TileSpec
+from repro_torch.distributed.context import canonical_device
+from repro_torch.ph.config import FilterLevel, OverlapSpec, PHConfig, \
+    TileSpec
+from repro_torch.ph.overlap import OverlapCounters, PendingResult, \
+    StagingPool, start_d2h
 
 # The dtypes the kernels take; wider inputs are canonicalized the way the
 # reference package canonicalizes them without 64-bit mode.
@@ -55,6 +68,9 @@ SUPPORTED_DTYPES = (torch.uint8, torch.int16, torch.int32, torch.float32,
 _CANONICAL = {torch.float64: torch.float32, torch.int64: torch.int32}
 _CONFIG_DTYPES = {"float32": torch.float32, "float64": torch.float32,
                   "int32": torch.int32, "bfloat16": torch.bfloat16}
+# The engine's behaviour when the config carries no overlap spec:
+# synchronous results, fresh staging buffers per batch.
+_OVERLAP_OFF = OverlapSpec(enabled=False)
 
 
 def threshold_dtype(image_dtype: torch.dtype) -> torch.dtype:
@@ -168,6 +184,11 @@ class PHEngine:
         self.regrow_log: list[dict] = []
         # The delta frame store, made at the first run_delta call.
         self._delta_cache = None
+        # Overlap-engine accounting (transfers, blocking syncs by thread
+        # role), bumped by the engine, the executor and the driver.
+        self.overlap_counters = OverlapCounters()
+        # Staging buffers of engine-built batches, reused under donation.
+        self.staging = StagingPool(reuse=self.donate_batched())
         # Guards the plan cache, the regrow memo and every counter; never
         # held while a plan computes.
         self._lock = threading.RLock()
@@ -202,6 +223,26 @@ class PHEngine:
                 "regrows": len(self.regrow_log),
             }
 
+    # -- overlap policy ----------------------------------------------------
+
+    def overlap_spec(self) -> OverlapSpec:
+        """Effective overlap policy — a disabled spec when the config
+        carries none."""
+        o = self.config.overlap
+        return o if o is not None else _OVERLAP_OFF
+
+    def donate_batched(self) -> bool:
+        """Whether engine-built batches are staged in reused pool buffers
+        (the port's form of buffer donation; never a caller's tensor)."""
+        o = self.overlap_spec()
+        return o.enabled and o.donate
+
+    def _stream_results(self) -> bool:
+        """Whether dispatches defer their computation into ``resolve()``
+        and stream their results to pinned host memory."""
+        o = self.overlap_spec()
+        return o.enabled and o.async_overflow
+
     def _ph_kwargs(self, mf: int, mc: int, merge_keys: str) -> dict:
         """Static arguments of one plan: capacities plus the stage
         signature's knobs."""
@@ -226,6 +267,38 @@ class PHEngine:
         def build(plan: Plan):
             plan.traces += 1
             return functools.partial(callee, **self._ph_kwargs(mf, mc, mk))
+
+        return self.get_plan(key, build)
+
+    def sharded_plan(self, ctx, shape, dtype, mf: int, mc: int) -> Plan:
+        """Batched PH of an ``(M, Hb, Wb)`` batch over ``ctx``'s devices
+        (always thresholded: vanilla rounds pass the inert extreme).
+
+        The plan takes each device's rows and thresholds as two lists, one
+        tensor per device, and returns one ``Diagram`` per device.  A
+        device's batch of one runs the single-image program, as the
+        reference's ``images.shape[0] == 1`` branch does (the pipeline's
+        ``M == dp_size`` rounds).  Devices run one after another.
+        """
+        mk = resolve_merge_keys(self.config.merge_keys, dtype)
+        key = ("sharded", ctx, tuple(shape), str(dtype), mf, mc,
+               self.config.plan_key())
+
+        def build(plan: Plan):
+            plan.traces += 1
+            kw = self._ph_kwargs(mf, mc, mk)
+
+            def compute(shards, tvals):
+                outs = []
+                for x, tv in zip(shards, tvals):
+                    if x.shape[0] == 1:
+                        d = pixhomology(x[0], tv[0], **kw)
+                        outs.append(Diagram(*(f.unsqueeze(0) for f in d)))
+                    else:
+                        outs.append(batched_pixhomology(x, tv, **kw))
+                return outs
+
+            return compute
 
         return self.get_plan(key, build)
 
@@ -345,23 +418,45 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
 
     def begin_regrow(self, dispatch: Callable[[int, int], Any],
                      overflowed: Callable[[Any], bool], n: int, kind: str,
-                     memo_key: tuple | None = None
+                     memo_key: tuple | None = None, stream: bool = False
                      ) -> tuple[Any, Callable[[], tuple[Any, RegrowStats]]]:
-        """Dispatch once at the memoized capacities and return
-        ``(out, finish)``; ``finish()`` performs the overflow check and the
-        regrow-and-replay loop, returning ``(out, RegrowStats)``."""
-        cfg = self.config
-        mf0, mc0 = self.initial_capacities(n)
-        if cfg.auto_regrow and memo_key is not None:
-            with self._lock:
-                got = self._grown.get(memo_key)
-            if got:
-                mf0 = max(mf0, min(got[0], n))
-                mc0 = max(mc0, min(got[1], n))
-        out0 = dispatch(mf0, mc0)
+        """Dispatch at the memoized capacities and return ``(out,
+        finish)``; ``finish()`` performs the overflow check and the
+        regrow-and-replay loop, returning ``(out, RegrowStats)`` — the
+        synchronous :meth:`run_with_regrow` is this plus an immediate
+        ``finish()``, so both give the same bytes.
 
-        def finish(out=out0, mf=mf0, mc=mc0):
+        With ``stream=True`` nothing is dispatched here and ``out`` is
+        ``None``: the port's phases B and C read back to the host inside
+        the computation, so a dispatch would block the calling thread.
+        ``finish()`` dispatches and checks the overflow on the device, as
+        the synchronous path does, then copies the last attempt's output
+        to pinned host memory (:func:`repro_torch.ph.overlap.start_d2h`);
+        its ``out`` is the host tree.
+
+        ``memo_key`` makes grown capacities sticky: a later call for the
+        same (kind, shape, dtype) starts at the largest capacity already
+        discovered (a deferred dispatch reads the memo when it runs, so a
+        round resolved after another starts at that round's capacities)."""
+        cfg = self.config
+
+        def start_capacities():
+            mf0, mc0 = self.initial_capacities(n)
+            if cfg.auto_regrow and memo_key is not None:
+                with self._lock:
+                    got = self._grown.get(memo_key)
+                if got:
+                    mf0 = max(mf0, min(got[0], n))
+                    mc0 = max(mc0, min(got[1], n))
+            return mf0, mc0
+
+        caps0 = None if stream else start_capacities()
+        out0 = None if stream else dispatch(*caps0)
+
+        def finish():
             attempts = 0
+            mf, mc = caps0 if caps0 is not None else start_capacities()
+            out = out0 if out0 is not None else dispatch(mf, mc)
             over = overflowed(out)
             while over and cfg.auto_regrow and attempts < cfg.max_regrows:
                 nmf, nmc = self.grow_capacities(mf, mc, n)
@@ -379,6 +474,8 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
                     got = self._grown.get(memo_key)
                     if got is None or got < (mf, mc):
                         self._grown[memo_key] = (mf, mc)
+            if stream:
+                out = start_d2h(out, self.overlap_counters).result()
             return out, RegrowStats(attempts, mf, mc, bool(over))
 
         return out0, finish
@@ -533,20 +630,47 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         ``dedupe`` (default on): exact content duplicates — same bytes,
         shape, dtype and threshold — compute once; their rows are
         gathered to every requesting position on the result's device.
+
+        This is :meth:`run_batch_async` resolved at once.
+        """
+        return self.run_batch_async(images, truncate_values, bucket=bucket,
+                                    dedupe=dedupe).resolve()
+
+    def run_batch_async(self, images, truncate_values=None, *,
+                        bucket: tuple[int, int] | None = None,
+                        dedupe: bool = True) -> PendingResult:
+        """Non-blocking :meth:`run_batch`: ``resolve()`` on the returned
+        :class:`repro_torch.ph.overlap.PendingResult` gives exactly
+        :meth:`run_batch`'s ``PHResult``.
+
+        Host images are cast and padded on the host into a staging slot
+        and uploaded with one non-blocking copy group (a tensor already on
+        the engine's device is used as it is, never donated).  With
+        ``overlap.async_overflow`` nothing else happens before
+        ``resolve()``: the computation, the overflow check, the regrow and
+        the pad repair run there, and the diagram comes back in pinned
+        host memory.  Without it the computation runs here and
+        ``resolve()`` finishes the overflow check and the repair.
         """
         if dedupe:
             plan = self._dedupe_batch(images, truncate_values)
             if plan is not None:
                 _, inverse, rep_images, rep_tvs = plan
-                res = self.run_batch(rep_images, rep_tvs, bucket=bucket,
-                                     dedupe=False)
-                inv = torch.as_tensor(inverse,
-                                      device=res.diagram.birth.device)
-                diag = Diagram(*(f[inv] for f in res.diagram))
-                thr = res.threshold
-                if thr is not None and not np.isscalar(thr):
-                    thr = np.asarray(thr)[inverse]
-                return dataclasses.replace(res, diagram=diag, threshold=thr)
+                pending = self.run_batch_async(rep_images, rep_tvs,
+                                               bucket=bucket, dedupe=False)
+
+                def fanout():
+                    res = pending.resolve()
+                    inv = torch.as_tensor(inverse,
+                                          device=res.diagram.birth.device)
+                    diag = Diagram(*(f[inv] for f in res.diagram))
+                    thr = res.threshold
+                    if thr is not None and not np.isscalar(thr):
+                        thr = np.asarray(thr)[inverse]
+                    return dataclasses.replace(res, diagram=diag,
+                                               threshold=thr)
+
+                return PendingResult(fanout)
         if _is_array(images) and images.ndim == 3 and (
                 bucket is None or tuple(bucket) == tuple(images.shape[1:])):
             return self._run_batch_uniform(images, truncate_values)
@@ -564,43 +688,80 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
                 truncate_values)
         return self._run_batch_bucketed(seq, truncate_values, bucket)
 
-    def _run_batch_uniform(self, images, truncate_values=None) -> PHResult:
+    def _begin_batch(self, shape, dtype, truncated: bool, slot, x=None,
+                     tvals=None):
+        """Dispatch a ``(B, H, W)`` batch through the regrow loop: from a
+        staging slot (released once the last attempt is enqueued), or from
+        ``x``/``tvals`` already on the device.  Returns ``finish()``."""
+        stream = self._stream_results()
+
+        def dispatch(mf, mc):
+            xs, tvs = slot.ready() if slot is not None else ([x], [tvals])
+            plan = self._local_plan("batched", shape, dtype, mf, mc,
+                                    truncated)
+            return plan(xs[0], tvs[0]) if truncated else plan(xs[0])
+
+        _, finish = self.begin_regrow(
+            dispatch, lambda d: bool(d.overflow.any()),
+            shape[1] * shape[2], "batched",
+            memo_key=("batched", tuple(shape), str(dtype)), stream=stream)
+
+        def done():
+            out = finish()
+            if slot is not None:
+                self.staging.release(slot)
+            return out
+
+        return done
+
+    def _run_batch_uniform(self, images, truncate_values=None
+                           ) -> PendingResult:
         """One ``(B, H, W)`` dispatch at the batch's own shape."""
-        x = self.cast_input(images)
+        on_device = isinstance(images, torch.Tensor) and \
+            canonical_device(images.device) == canonical_device(self.device)
+        host = None if on_device else self.cast_input_host(images)
+        x = self.cast_input(images) if on_device else host
         if x.dim() != 3:
             raise ValueError(f"expected (B, H, W) batch, got shape "
                              f"{tuple(x.shape)}")
         if truncate_values is None and \
                 self.config.filter_level is not FilterLevel.VANILLA:
-            host = as_host_tensor(images)
+            src = as_host_tensor(images)
             truncate_values = np.asarray(
-                [self.auto_threshold(host[i]) for i in range(host.shape[0])],
+                [self.auto_threshold(src[i]) for i in range(src.shape[0])],
                 np.float32)
         truncated = truncate_values is not None
-        if truncated:
-            tvals = torch.as_tensor(np.asarray(truncate_values),
-                                    device=self.device).to(
-                threshold_dtype(x.dtype))
         shape, dtype = tuple(x.shape), x.dtype
+        if on_device:
+            tv = torch.as_tensor(np.asarray(truncate_values),
+                                 device=self.device).to(
+                threshold_dtype(dtype)) if truncated else None
+            finish = self._begin_batch(shape, dtype, truncated, None, x, tv)
+        else:       # an engine-owned copy in a staging slot, uploaded
+            slot = self.staging.acquire((self.device,), shape, dtype,
+                                        threshold_dtype(dtype))
+            slot.host_batch.copy_(host)
+            if truncated:
+                slot.host_tvals.copy_(torch.as_tensor(np.asarray(
+                    truncate_values)).to(slot.host_tvals.dtype))
+            finish = self._begin_batch(shape, dtype, truncated,
+                                       self.staging.upload(slot))
 
-        def dispatch(mf, mc):
-            plan = self._local_plan("batched", shape, dtype, mf, mc,
-                                    truncated)
-            return plan(x, tvals) if truncated else plan(x)
+        def materialize():
+            diag, stats = finish()
+            return PHResult(diag, self.config.replace(
+                max_features=stats.final_max_features,
+                max_candidates=stats.final_max_candidates), stats,
+                truncate_values)
 
-        diag, stats = self.run_with_regrow(
-            dispatch, lambda d: bool(d.overflow.any()),
-            shape[1] * shape[2], "batched",
-            memo_key=("batched", shape, str(dtype)))
-        return PHResult(diag, self.config.replace(
-            max_features=stats.final_max_features,
-            max_candidates=stats.final_max_candidates), stats,
-            truncate_values)
+        return PendingResult(materialize)
 
     def _run_batch_bucketed(self, seq, truncate_values,
-                            bucket: tuple[int, int] | None) -> PHResult:
+                            bucket: tuple[int, int] | None
+                            ) -> PendingResult:
         """Mixed-shape batch through one shape-bucketed padded dispatch:
-        host cast and padding, one upload, regrow, per-row repair."""
+        host cast and padding into a staging slot, one upload, regrow,
+        per-row repair at ``resolve()``."""
         from repro_torch.pipeline.padding import (pad_fixup, pad_image,
                                                   pad_threshold,
                                                   unpad_diagram)
@@ -624,7 +785,9 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         filt = self.config.filtration
         inert = math.inf if filt == "sublevel" else -math.inf
         dtype = imgs[0].dtype
-        batch = torch.empty((len(imgs), *bucket), dtype=dtype)
+        shape = (len(imgs), *bucket)
+        slot = self.staging.acquire((self.device,), shape, dtype,
+                                    threshold_dtype(dtype))
         tvals = np.empty((len(imgs),), np.float64)
         fixups: list = [None] * len(imgs)
         for i, im in enumerate(imgs):
@@ -635,31 +798,26 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
             if tuple(im.shape) != bucket:
                 t = pad_threshold(im, t, filt)
                 fixups[i] = pad_fixup(im, filt)
-            batch[i] = pad_image(im, bucket, filt)
+            slot.host_batch[i] = pad_image(im, bucket, filt)
             tvals[i] = inert if t is None else t
+        slot.host_tvals.copy_(torch.as_tensor(tvals).to(
+            slot.host_tvals.dtype))
+        finish = self._begin_batch(shape, dtype, True,
+                                   self.staging.upload(slot))
 
-        shape = tuple(batch.shape)
-        x = batch.to(self.device)
-        tv = torch.as_tensor(tvals, device=self.device).to(
-            threshold_dtype(dtype))
+        def materialize():
+            diag, stats = finish()
+            rows = []
+            for i in range(len(imgs)):
+                d = Diagram(*(f[i] for f in diag))
+                if fixups[i] is not None:
+                    d = unpad_diagram(d, fixups[i], bucket)
+                rows.append(d)
+            return PHResult(stack_diagrams(rows), self.config.replace(
+                max_features=stats.final_max_features,
+                max_candidates=stats.final_max_candidates), stats, tvals)
 
-        def dispatch(mf, mc):
-            plan = self._local_plan("batched", shape, dtype, mf, mc, True)
-            return plan(x, tv)
-
-        diag, stats = self.run_with_regrow(
-            dispatch, lambda d: bool(d.overflow.any()),
-            bucket[0] * bucket[1], "batched",
-            memo_key=("batched", shape, str(dtype)))
-        rows = []
-        for i in range(len(imgs)):
-            d = Diagram(*(f[i] for f in diag))
-            if fixups[i] is not None:
-                d = unpad_diagram(d, fixups[i], bucket)
-            rows.append(d)
-        return PHResult(stack_diagrams(rows), self.config.replace(
-            max_features=stats.final_max_features,
-            max_candidates=stats.final_max_candidates), stats, tvals)
+        return PendingResult(materialize)
 
     def num_candidates(self, image, truncate_value=None) -> int:
         """Count death-point candidates under this engine's config (for
@@ -711,13 +869,24 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         except TypeError:   # provider without a sample knob
             return provider.filter_threshold(cfg.filter_level)
 
-    def stage_tiles(self, provider, *, grid=None):
+    def _check_ctx(self, ctx) -> None:
+        """A tiled run under a :class:`DistContext` runs on the context's
+        first device, which must be the engine's: tile rows that span
+        several devices are not ported (ROADMAP.md, queue 1 item 1a)."""
+        if ctx is not None and ctx.devices[0] != canonical_device(
+                self.device):
+            raise ValueError(f"context device {ctx.devices[0]} is not the "
+                             f"engine's device {self.device}")
+
+    def stage_tiles(self, provider, *, grid=None, ctx=None):
         """Stage a tile provider's halo-padded tiles on the engine's device
         (O(tile) host residency), choosing the grid from the config's
         :class:`TileSpec` when not given.  The returned
         :class:`repro_torch.core.tiling.StagedTiles` feeds
-        :meth:`run_tiled`."""
+        :meth:`run_tiled` — the half the pipeline's loader thread runs
+        ahead.  ``ctx``: see :meth:`run_tiled`."""
         from repro_torch.core import tiling
+        self._check_ctx(ctx)
         if grid is None:
             grid = self._resolve_grid(tuple(provider.shape),
                                       self._tile_spec())
@@ -825,14 +994,21 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
                 max_candidates_per_tile=tk))
         return PHResult(out.diagram, eff, stats, truncate_value, delta)
 
+    def _streamed(self, out):
+        """A tiled run's last output copied to pinned host memory under
+        ``overlap.async_overflow``, else ``out`` as it is."""
+        if not self._stream_results():
+            return out
+        return start_d2h(out, self.overlap_counters).result()
+
     def _threshold_tensor(self, truncate_value, dtype):
         if truncate_value is None:
             return None
         return torch.tensor(truncate_value, dtype=threshold_dtype(dtype),
                             device=self.device)
 
-    def run_tiled(self, image, truncate_value=None, *, grid=None
-                  ) -> PHResult:
+    def run_tiled(self, image, truncate_value=None, *, grid=None,
+                  ctx=None) -> PHResult:
         """Halo-tiled PH of one (possibly device-exceeding) 2D image.
 
         ``image`` is a host 2D array or tensor, a **tile provider**
@@ -848,7 +1024,11 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         are None).  Overflow regrows per level: tile capacities toward the
         tile pixel count on tile overflow, ``max_features`` toward the
         image pixel count on seam-merge overflow; the result is memoized
-        per ``("tiled", shape, grid, dtype)``.
+        per ``("tiled", shape, grid, dtype)``.  ``ctx`` (the pipeline's
+        :class:`repro_torch.distributed.context.DistContext`) runs the
+        tiles on its first device, the engine's.  With
+        ``overlap.async_overflow`` the last attempt's output streams to
+        pinned host memory and the diagram comes back there.
         """
         from repro_torch.core.tiling import StagedTiles
         cfg = self.config
@@ -856,6 +1036,7 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
             raise ValueError("run_tiled supports candidate_mode='exact' "
                              "only (the paper-literal distillation has no "
                              "tiled equivalence proof)")
+        self._check_ctx(ctx)
         source, shape, grid, dtype, truncate_value = self._tiled_source(
             image, truncate_value, grid, upload=True)
         truncated = truncate_value is not None
@@ -878,7 +1059,8 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
             caps, attempts = new, attempts + 1
         if attempts:
             self._remember(memo_key, caps)
-        return self._tiled_result(out, caps, attempts, grid, truncate_value)
+        return self._tiled_result(self._streamed(out), caps, attempts, grid,
+                                  truncate_value)
 
     def run_delta(self, image, truncate_value=None, *, grid=None
                   ) -> PHResult:
@@ -905,6 +1087,8 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         :meth:`run_tiled` and shares its memo; a tile-capacity regrow
         invalidates the cached state (its arrays are capacity-shaped), a
         merge-only regrow keeps the fresh rows and replays only the merge.
+        Under ``overlap.async_overflow`` the diagram streams to pinned host
+        memory, as in :meth:`run_tiled`.
         """
         from repro_torch.cache import DiagramCache, FrameCacheEntry
         from repro_torch.core import delta as delta_mod
@@ -986,8 +1170,8 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         hit = "partial" if kind == "partial" else "miss"
         dstats = delta_mod.DeltaStats(n_tiles, int(len(np.unique(dirty))),
                                       hit)
-        result = self._tiled_result(out, caps, attempts, grid,
-                                    truncate_value, dstats)
+        result = self._tiled_result(self._streamed(out), caps, attempts,
+                                    grid, truncate_value, dstats)
         # put() on an existing (context, digests) key replaces in place.
         cache.put(context, FrameCacheEntry(
             digests=digests, state=new_state, result=result,
@@ -1105,3 +1289,43 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         plan = self.distance_plan(birth.shape[0], birth.shape[1],
                                   torch.float32, int(n_dirs))
         return plan(birth, death, p_birth)
+
+    # -- the distributed pipeline -------------------------------------------
+
+    def run_distributed(self, images, *, ctx=None, image_size: int = 512,
+                        strategy: str = "part_LPT", work_log=None,
+                        failure_injector=None, max_retries: int = 3,
+                        verbose: bool = False):
+        """The paper's end-to-end distributed job, engine-owned.
+
+        Builds a :class:`repro_torch.pipeline.executor.ShardedPHExecutor`
+        over ``ctx`` (default: one executor on the engine's device; more
+        devices take an explicit context, whose devices run one after
+        another, see :meth:`sharded_plan`), schedules ``images`` with
+        the Variant-3 ``strategy`` into shape-bucketed rounds, applies the
+        config's Variant-2 filter level, records completed work in
+        ``work_log`` and regrows capacities on overflow (grown capacities
+        stick for later rounds).
+
+        ``images``: a heterogeneous dataset — each element an image id
+        (``int``, at ``image_size``), an ``(id, size)`` / ``(id, (H, W))``
+        pair, or a :class:`repro_torch.pipeline.scheduler.ImageMeta` (the
+        synthetic astro loader renders square frames only).  Images larger
+        than ``TileSpec.max_tile_pixels`` run as tiled rounds through
+        :meth:`run_tiled`, loaded tile by tile; the driver's loader thread
+        stages round r+1 while round r computes
+        (``config.prefetch_rounds``), and with ``config.overlap`` a harvest
+        thread resolves rounds while the driver dispatches later ones.
+
+        Returns :class:`repro_torch.pipeline.driver.PipelineResult`.
+        """
+        from repro_torch.distributed.context import single_device_ctx
+        from repro_torch.pipeline.driver import run_pipeline
+        from repro_torch.pipeline.executor import ShardedPHExecutor
+        executor = ShardedPHExecutor(
+            self, ctx if ctx is not None else single_device_ctx(self.device),
+            image_size=image_size)
+        return run_pipeline(executor, images, strategy=strategy,
+                            work_log=work_log,
+                            failure_injector=failure_injector,
+                            max_retries=max_retries, verbose=verbose)

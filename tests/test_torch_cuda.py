@@ -445,3 +445,117 @@ def test_smoke_serve_on_card_matches_cpu_run():
     lg_gpu, _ = transformer.prefill(gpu_params, tokens.cuda(), max_len=64)
     lg_cpu, _ = transformer.prefill(params, tokens, max_len=64)
     torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_start_d2h_pinned_copy_equals_cpu():
+    """One D2H group: every CUDA leaf lands in pinned host memory equal to
+    ``.cpu()``, host leaves pass through, one ``d2h_streams`` bump."""
+    _need_cuda()
+    from repro_torch.ph.overlap import OverlapCounters, start_d2h
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(1 << 20, device="cuda", generator=g)
+    tree = {"x": x * 3, "i": [x.to(torch.int32), torch.tensor(7).cuda()],
+            "bf": x.to(torch.bfloat16), "host": torch.arange(3)}
+    counters = OverlapCounters()
+    got = start_d2h(tree, counters).result()
+    for key in ("x", "bf"):
+        assert got[key].is_pinned() and torch.equal(got[key],
+                                                    tree[key].cpu())
+    assert torch.equal(got["i"][0], tree["i"][0].cpu())
+    assert int(got["i"][1]) == 7 and got["host"] is tree["host"]
+    assert counters.snapshot()["d2h_streams"] == 1
+
+
+@pytest.mark.cuda
+def test_staging_pool_never_reuses_a_slot_still_being_read():
+    """A released slot whose reader is still queued (behind a device
+    sleep) is not handed out again: the next batch gets another slot, and
+    the queued computation reads the bytes that were staged for it.  Once
+    the reader has finished, the slot is reused."""
+    _need_cuda()
+    from repro_torch.distributed.context import canonical_device
+    from repro_torch.ph.overlap import StagingPool
+    dev = (canonical_device("cuda"),)
+    shape = (1, 512, 512)
+    pool = StagingPool(reuse=True)
+    a = pool.acquire(dev, shape, torch.float32, torch.float32)
+    a.host_batch.copy_(torch.arange(512 * 512.0).reshape(shape))
+    a.host_tvals.fill_(1.0)
+    pool.upload(a)
+    (xa,), (ta,) = a.ready()
+    xa * 2 + ta        # load the kernels first: a lazy load may sync
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)        # the reader waits behind this
+    out = xa * 2 + ta
+    pool.release(a)
+    b = pool.acquire(dev, shape, torch.float32, torch.float32)
+    assert b is not a
+    b.host_batch.fill_(-1.0)
+    b.host_tvals.fill_(-1.0)
+    pool.upload(b)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), a.host_batch * 2 + 1.0)
+    assert pool.acquire(dev, shape, torch.float32, torch.float32) is a
+
+
+@pytest.mark.cuda
+def test_begin_staged_enqueues_without_blocking():
+    """A staged round's dispatch side (``load_round`` + ``begin_staged``)
+    runs under sync debug mode "error" with the overlap on; resolving it
+    gives the synchronous executor's diagram."""
+    _need_cuda()
+    from repro_torch.distributed.context import single_device_ctx
+    from repro_torch.ph import OverlapSpec
+    from repro_torch.pipeline.executor import ShardedPHExecutor
+    from repro_torch.pipeline.scheduler import BucketRound, ImageMeta
+    cfg = PHConfig(merge_impl="boruvka", filter_level="filter_std")
+    rnd = BucketRound("whole", (256, 256), ((0, ImageMeta(3, (200, 200))),))
+    over = ShardedPHExecutor(PHEngine(cfg.replace(overlap=OverlapSpec())),
+                             single_device_ctx())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = over.begin_staged(over.load_round(rnd))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = pending.resolve()[3]
+    sync = ShardedPHExecutor(PHEngine(cfg), single_device_ctx())
+    want = sync.run_staged(sync.load_round(rnd))[3]
+    assert got.birth.device.type == "cpu"
+    _same_diagrams(got, want)
+    snap = over.engine.overlap_counters.snapshot()
+    assert snap["h2d_transfers"] == 1 and snap["dispatch_syncs"] == 0
+
+
+@pytest.mark.cuda
+def test_run_distributed_on_card_equals_per_image_runs():
+    """A small mixed survey with a tiled frame through ``run_distributed``
+    on the card, synchronous and overlapped: equal summaries, and each
+    equal to the summary of the engine's own ``run`` / ``run_tiled``; the
+    overlapped run takes the default context (the engine's card alone) and
+    copies one result to the host a round."""
+    _need_cuda()
+    from repro_torch.distributed.context import single_device_ctx
+    from repro_torch.ph import OverlapSpec, TileSpec
+    from repro_torch.pipeline.driver import _summarize
+    images = [(0, 256), (1, 200), (2, 512), (3, 256)]
+    cfg = PHConfig(merge_impl="boruvka", filter_level="filter_std",
+                   tile=TileSpec(max_tile_pixels=256 * 256))
+    ctx = single_device_ctx()
+    kc.LIBRARY.launches = ka.LIBRARY.launches = 0
+    sync = PHEngine(cfg).run_distributed(images, ctx=ctx)
+    assert ka.LIBRARY.launches > 0 and kc.LIBRARY.launches > 0
+    over = PHEngine(cfg.replace(overlap=OverlapSpec()))
+    got = over.run_distributed(images)
+    assert got.diagrams == sync.diagrams and got.rounds == sync.rounds
+    snap = over.overlap_counters.snapshot()
+    assert snap["dispatch_syncs"] == 0 and snap["h2d_transfers"] == 3
+    assert snap["d2h_streams"] == got.rounds
+    eng = PHEngine(cfg)
+    for i, size in images:
+        if size * size > 256 * 256:
+            res = eng.run_tiled(astro.AstroImage(i, size))
+        else:
+            res = eng.run(astro.generate_image(i, size))
+        assert _summarize(res.diagram) == sync.diagrams[i]

@@ -284,7 +284,9 @@ def test_delta_bit_identical_on_random_dirty_masks(bitmask):
         assert got.delta.n_dirty == len(tiles)
 
 
-_RANDOM_ENGINE = _engine()
+# One frame in the store: each example's frame is classified against the
+# base it just stored, not against an earlier example's frame.
+_RANDOM_ENGINE = _engine(delta=DeltaSpec(cache_entries=1))
 
 
 @pytest.mark.parametrize("filtration,dtype", [("superlevel", "bfloat16"),

@@ -278,6 +278,9 @@ def test_port_import_leaves_jax_out():
             "repro_torch.kernels.ph_phase_c, repro_torch.kernels.maxpool, "
             "repro_torch.kernels.ph_distance, "
             "repro_torch.pipeline.padding, repro_torch.pipeline.scheduler, "
+            "repro_torch.pipeline.executor, repro_torch.pipeline.driver, "
+            "repro_torch.ph.overlap, repro_torch.distributed.context, "
+            "repro_torch.launch.ph_run, "
             "repro_torch.kernels.flash_attention, repro_torch.configs.base, "
             "repro_torch.models.model, repro_torch.models.convert, "
             "repro_torch.launch.serve_lm; "
