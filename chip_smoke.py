@@ -121,7 +121,27 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
              failure injection and a work-log resume equal to the clean
              run; wall ms of each run, the loader thread's host ms and the
              host ms spent in each round's compute; a result's copy to the
-             host by ``start_d2h`` against ``.cpu()``, in turns.
+             host by ``start_d2h`` against ``.cpu()``, in turns;
+18. serving — ``PHServer`` over the main config with buckets 1024² and
+             2048², ``batch_cap`` 4 and ``OverlapSpec()``: ``warmup`` (its
+             seconds, plans and each bucket's capacity tier), then 32
+             windows of astro frames 0-3 at 2048² (sides 60-100 % of their
+             bucket) from 4 client threads, thresholds left to the server:
+             no failed future, no plan built and no regrow after warmup,
+             phase-A and best-edge launches, no blocking read on the tick
+             thread; every served diagram equal to ``run`` at its
+             threshold, one per bucket to a ``use_pallas=False`` engine's;
+             per bucket the p50/p95/p99 end-to-end and queue wait, the
+             occupancy, the statistic's share of a batch, and a batch at
+             the warm tier against ``run_batch`` of the same images at
+             their own tier, in turns (the kernels held to their plain
+             versions on the warm-tier batch); the first 8 requests
+             through a synchronous harvest, equal; one tick dispatch under
+             ``torch.cuda.set_sync_debug_mode("error")``; the cache tier
+             over ``FrameSequence(0, 2048, grid=(4, 4))`` (a miss, a
+             partial hit equal to ``run_tiled``, an exact hit resolved on
+             the submit thread; the device memory it holds); and
+             ``python -m repro_torch.launch.ph_serve`` as a subprocess.
 
 Every kernel is timed two ways: ``ms`` is one call's CUDA-event time
 (``cuda_ms``: the host's launch overhead falls inside the interval when it
@@ -177,6 +197,19 @@ PIPELINE_WHOLE = 16
 PIPELINE_TILED = 8192
 PIPELINE_TILE_PIXELS = 4096 * 4096
 PIPELINE_FAIL_ROUND = 3         # dispatch sequence number that fails once
+# The serving phase: a daemon with buckets 1024² and 2048² (its warm tier
+# is the checkerboard's, 7-8 doublings from 8192 features at 2048²) and a
+# fixed dispatch batch of 4; a survey load of 32 windows of astro frames
+# 0-3 at 2048², sides 60-100 % of their bucket, from 4 client threads.
+SERVE_BUCKETS = (1024, 2048)
+SERVE_CAP = 4
+SERVE_FRAMES = 4
+SERVE_REQUESTS = 32
+SERVE_CLIENTS = 4
+SERVE_ASYNC_CHECK = 8           # requests also served with a sync harvest
+SERVE_TIER_GRID = (4, 4)        # the cache tier's tiles over 2048² frames
+SERVE_CLI = ("--buckets", "64", "128", "--clients", "4", "--requests", "16",
+             "--merge-impl", "boruvka")
 BF16_OPS_PER_S = 989e12          # H100 SXM bfloat16 tensor cores, dense
 # flash_attention cases (B, H, KV, Sq, Skv, hd, causal, window): the six of
 # tests/test_kernels_flash_attention.py, then the LM's GQA 32/8 at hd 128
@@ -1271,6 +1304,395 @@ def phase_pipeline(reset_counts, read_counts, err) -> dict:
     return {"launches": launches_s}
 
 
+def serving_load() -> tuple[list, list]:
+    """The serving phase's survey load: ``(frames, requests)`` —
+    ``SERVE_FRAMES`` astro frames at ``BATCH_SIZE``², and
+    ``SERVE_REQUESTS`` windows cut from them, cycling ``SERVE_BUCKETS``,
+    each side drawn at 60-100 % of its bucket at a drawn offset (seed
+    18)."""
+    import numpy as np
+    from repro_torch.data import astro
+    frames = [astro.generate_image(i, BATCH_SIZE)
+              for i in range(SERVE_FRAMES)]
+    rng = np.random.default_rng(18)
+    requests = []
+    for k in range(SERVE_REQUESTS):
+        b = SERVE_BUCKETS[k % len(SERVE_BUCKETS)]
+        h, w = (int(rng.integers(int(b * 0.6), b + 1)) for _ in range(2))
+        r0 = int(rng.integers(0, BATCH_SIZE - h + 1))
+        c0 = int(rng.integers(0, BATCH_SIZE - w + 1))
+        f = frames[(k // len(SERVE_BUCKETS)) % SERVE_FRAMES]
+        requests.append(np.ascontiguousarray(f[r0:r0 + h, c0:c0 + w]))
+    return frames, requests
+
+
+def same_rows(a, b) -> bool:
+    """Two results' valid rows (``to_array()``) equal bit for bit, with the
+    same unmerged count and overflow flag (capacities may differ)."""
+    import numpy as np
+    x, y = a.to_array(), b.to_array()
+    return x.shape == y.shape and np.array_equal(
+        x.view(np.int64), y.view(np.int64)) and all(
+        int(getattr(a.diagram, f)) == int(getattr(b.diagram, f))
+        for f in ("n_unmerged", "overflow"))
+
+
+def cuda_bytes(tree) -> int:
+    """Device memory held by the CUDA tensor leaves of ``tree``."""
+    from repro_torch.ph.overlap import map_tensors
+    held = []
+    map_tensors(lambda t: held.append(t.numel() * t.element_size()
+                                      if t.is_cuda else 0), tree)
+    return sum(held)
+
+
+class deferred_harvest:
+    """Stands in for a server's harvest pool: records each resolution the
+    tick hands over instead of running it, so a dispatch can be checked
+    with nothing else running; :meth:`run` then resolves them on the
+    calling thread."""
+
+    def __init__(self):
+        self.calls = []
+
+    def submit(self, fn, *args):
+        self.calls.append((fn, args))
+
+    def run(self):
+        calls, self.calls = self.calls, []
+        for fn, args in calls:
+            fn(*args)
+
+    def shutdown(self, wait=True):
+        self.run()
+
+
+def phase_serving(reset_counts, read_counts, err) -> dict:
+    """Phase 18: PH-as-a-service on the card.
+
+    A ``PHServer`` over ``PHEngine(MAIN_CONFIG, serve=ServeSpec(buckets
+    1024² and 2048², batch_cap 4), overlap=OverlapSpec())``: ``warmup``
+    (its seconds, plans and the capacity tier of each bucket), then the
+    survey load (:func:`serving_load`) from ``SERVE_CLIENTS`` threads with
+    the thresholds left to the server.  Held: every served diagram equals
+    the port's own ``run`` at the served threshold, one request per bucket
+    a ``use_pallas=False`` engine's; no plan built and no regrow after
+    warmup; phase-A and best-edge launches during the load; no blocking
+    read on the tick thread.  Then a batch of each bucket at the warm tier
+    against ``run_batch`` of the same four images at their own tier (the
+    kernels held to their plain versions on the warm-tier inputs); the
+    first requests again through a synchronous harvest; one tick dispatch
+    under ``torch.cuda.set_sync_debug_mode("error")``; the cache tier over
+    a ``FrameSequence`` at 2048² (miss, partial hit, exact hit on the
+    submit thread); and the ``ph_serve`` CLI as a subprocess.
+    """
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.data import astro
+    from repro_torch.ph import (DeltaSpec, OverlapSpec, PHConfig, PHEngine,
+                                ServeSpec, TileSpec)
+    from repro_torch.pipeline.scheduler import assign_bucket
+    from repro_torch.serving import PHServer, bucket_label
+
+    t_phase = time.perf_counter()
+    spec = ServeSpec(buckets=SERVE_BUCKETS, batch_cap=SERVE_CAP,
+                     tick_interval_s=0.002)
+    cfg = PHConfig(**MAIN_CONFIG, serve=spec, overlap=OverlapSpec())
+    engine = PHEngine(cfg)
+    srv = PHServer(engine)
+    info = srv.warmup()
+    tiers = {}
+    for b in spec.buckets:
+        n = b[0] * b[1]
+        single = engine._grown.get(("single", b, "torch.float32"),
+                                   engine.initial_capacities(n))
+        batched = engine._grown.get(("batched", (SERVE_CAP, *b),
+                                     "torch.float32"),
+                                    engine.initial_capacities(n))
+        worst = -(-b[0] // 2) * -(-b[1] // 2)
+        tiers[bucket_label(b)] = dict(single=list(single),
+                                      batched=list(batched),
+                                      checkerboard_features=worst)
+        if batched[0] < worst:
+            raise AssertionError(f"bucket {b}: warm tier {batched} below "
+                                 f"the checkerboard's {worst} features")
+    warm_regrows = len(engine.regrow_log)
+
+    # -- the survey load ------------------------------------------------------
+    frames, requests = serving_load()
+    bucket_of = [assign_bucket(im.shape, spec.buckets) for im in requests]
+    stat = []                   # (bucket, s) per statistic call (tick)
+    orig_stat = engine.auto_threshold
+
+    def timed_stat(img):
+        t0 = time.perf_counter()
+        out = orig_stat(img)
+        stat.append((assign_bucket(tuple(img.shape), spec.buckets),
+                     time.perf_counter() - t0))
+        return out
+
+    results = [None] * len(requests)
+    errors = []
+
+    def client(c):
+        try:
+            futs = [(k, srv.submit(requests[k]))
+                    for k in range(c, len(requests), SERVE_CLIENTS)]
+            for k, f in futs:
+                results[k] = f.result(timeout=600)
+        except Exception as exc:        # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    engine.auto_threshold = timed_stat
+    before = engine.overlap_counters.snapshot()
+    reset_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    drained = srv.drain(600)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    del engine.auto_threshold
+    after = engine.overlap_counters.snapshot()
+    counters = {k: after[k] - before[k] for k in after}
+    stats = srv.stats()
+    srv.shutdown()
+    if errors or not drained or any(r is None for r in results) \
+            or stats["failed"] or stats["completed"] != len(requests):
+        raise AssertionError(f"serving load failed: {errors[:3]}, "
+                             f"drained={drained}, failed={stats['failed']}, "
+                             f"completed={stats['completed']}")
+    if srv.steady_state_traces() != 0 or \
+            len(engine.regrow_log) != warm_regrows:
+        raise AssertionError(f"steady state built {srv.steady_state_traces()}"
+                             f" plans and regrew "
+                             f"{engine.regrow_log[warm_regrows:]}")
+    if min(launches["ph_phase_a"], launches["ph_phase_c"]) <= 0:
+        raise AssertionError(f"serving missed a kernel: {launches}")
+    if counters["dispatch_syncs"] != 0 or counters["harvest_syncs"] <= 0:
+        raise AssertionError(f"serving counters {counters}")
+    if not all(f.device.type == "cpu" for r in results for f in r.diagram):
+        raise AssertionError("a served row is not in host memory")
+
+    # -- every served diagram against run; one per bucket against plain -----
+    t0 = time.perf_counter()
+    ref = PHEngine(PHConfig(**MAIN_CONFIG))
+    plain = PHEngine(PHConfig(**MAIN_CONFIG, use_pallas=False))
+    plain_held = {}
+    for k, (img, res) in enumerate(zip(requests, results)):
+        if not same_rows(ref.run(img, res.threshold), res):
+            raise AssertionError(f"request {k}: served != run")
+        label = bucket_label(bucket_of[k])
+        if label not in plain_held:
+            if not same_rows(plain.run(img, res.threshold), res):
+                raise AssertionError(f"request {k}: served != the plain "
+                                     f"engine")
+            plain_held[label] = dict(request=k, shape=list(img.shape),
+                                     count=int(res.diagram.count))
+    check_ms = (time.perf_counter() - t0) * 1e3
+    del ref, plain
+
+    # -- per bucket: latency, occupancy, the statistic, warm vs own tier -----
+    buckets = {}
+    for b in spec.buckets:
+        label = bucket_label(b)
+        bs = stats["buckets"][label]
+        ks = [k for k in range(len(requests)) if bucket_of[k] == b]
+        imgs = [requests[k] for k in ks[:SERVE_CAP]]
+        tvs = [results[k].threshold for k in ks[:SERVE_CAP]]
+        own = PHEngine(PHConfig(**MAIN_CONFIG, overlap=OverlapSpec()))
+        first_own = own.run_batch(imgs, tvs, bucket=b, dedupe=False)
+        with capture_kernels(True) as cap:
+            warm = engine.run_batch(imgs, tvs, bucket=b, dedupe=False)
+        x, s_rows = cap["phase_a"]
+        check_phase_a(x, s_rows, f"serving {label} warm-tier batch", err)
+        held = dict(phase_a_shape=list(x.shape),
+                    best_edge=check_best_edge(cap, err))
+        del cap, x
+        ms = {"warm": [], "own": []}
+        for name in ("own", "warm", "warm", "own", "own", "warm"):
+            eng = engine if name == "warm" else own
+            out, t_ms = wall_ms(lambda: eng.run_batch(imgs, tvs, bucket=b,
+                                                      dedupe=False))
+            ms[name].append(t_ms)
+        for i, k in enumerate(ks[:SERVE_CAP]):
+            for batch in (warm, first_own):
+                row = type(results[k])(
+                    type(batch.diagram)(*(f[i] for f in batch.diagram)),
+                    batch.config, batch.regrow, tvs[i])
+                if not same_rows(row, results[k]):
+                    raise AssertionError(f"{label}: run_batch row {i} != "
+                                         f"served")
+        stat_s = sum(t for bb, t in stat if bb == b)
+        batch_s = bs["batch_s"]["mean"] * bs["batch_s"]["count"]
+        buckets[label] = dict(
+            requests=bs["requests"], batches=bs["batches"],
+            occupancy=bs["occupancy"],
+            e2e_ms={q: bs["e2e_s"][q] * 1e3 for q in ("p50", "p95", "p99")},
+            queue_wait_ms={q: bs["queue_wait_s"][q] * 1e3
+                           for q in ("p50", "p95", "p99")},
+            served_batch_ms_mean=bs["batch_s"]["mean"] * 1e3,
+            statistic_calls=sum(1 for bb, _ in stat if bb == b),
+            statistic_ms=stat_s * 1e3,
+            statistic_share_of_batch=stat_s / batch_s if batch_s else None,
+            warm_tier=tiers[label]["batched"],
+            own_tier=list(own._grown.get(("batched", (SERVE_CAP, *b),
+                                          "torch.float32"),
+                                         own.initial_capacities(
+                                             b[0] * b[1]))),
+            run_batch_warm_tier_ms=ms["warm"],
+            run_batch_own_tier_ms=ms["own"],
+            run_batch_warm_tier_ms_median=statistics.median(ms["warm"]),
+            run_batch_own_tier_ms_median=statistics.median(ms["own"]),
+            kernels_vs_plain=held, plain_engine_equal=plain_held[label])
+        del own, warm, first_own
+
+    # -- the first requests again through a synchronous harvest -------------
+    sync_eng = PHEngine(cfg.replace(overlap=OverlapSpec(
+        async_harvest=False)))
+    with PHServer(sync_eng) as ssrv:
+        futs = [ssrv.submit(requests[k]) for k in range(SERVE_ASYNC_CHECK)]
+        sync_res = [f.result(timeout=600) for f in futs]
+    sync_counters = sync_eng.overlap_counters.snapshot()
+    for k, res in enumerate(sync_res):
+        if res.threshold != results[k].threshold or \
+                not same_rows(res, results[k]):
+            raise AssertionError(f"request {k}: sync harvest != async")
+    if sync_counters["dispatch_syncs"] <= 0 or sync_counters["harvest_syncs"]:
+        raise AssertionError(f"sync harvest counters {sync_counters}")
+    del sync_eng, sync_res
+
+    # -- one tick dispatch under sync debug mode "error" ---------------------
+    # A server that never starts its tick: its queue is filled and the tick's
+    # dispatch runs here, with the harvest recorded, not run, so nothing
+    # else is on the card while the (process-wide) mode is on.
+    dsrv = PHServer(engine, start=False)
+    dsrv._harvest.shutdown(wait=True)
+    dsrv._harvest = deferred = deferred_harvest()
+    ks = [k for k in range(len(requests))
+          if bucket_of[k] == spec.buckets[-1]][:SERVE_CAP]
+    futs = [dsrv.submit(requests[k]) for k in ks]
+    bucket, reqs = dsrv._next_batch()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handed = dsrv._dispatch(bucket, reqs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not handed:
+        raise AssertionError(f"the tick's dispatch did not hand its batch "
+                             f"to the harvest: {futs[0].exception()}")
+    deferred.run()
+    for k, f in zip(ks, futs):
+        if not same_rows(f.result(timeout=0), results[k]):
+            raise AssertionError(f"request {k}: sync-debug dispatch != "
+                                 f"served")
+    dsrv.shutdown()
+
+    # -- the cache tier over a FrameSequence at 2048² -------------------------
+    fs = astro.FrameSequence(0, BATCH_SIZE, grid=SERVE_TIER_GRID)
+    fs._base = frames[0]        # base() would render frame 0 again
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    tier_eng = PHEngine(PHConfig(
+        **MAIN_CONFIG, tile=TileSpec(grid=SERVE_TIER_GRID),
+        delta=DeltaSpec(), serve=ServeSpec(buckets=(BATCH_SIZE,),
+                                           batch_cap=SERVE_CAP,
+                                           tick_interval_s=0.002)))
+    f0, f1 = fs.frame(0), fs.frame(1)
+    tv = tier_eng.auto_threshold(f0)
+    with PHServer(tier_eng) as tsrv:
+        # The tier's own launches; the miss's first best-edge call (the
+        # seam merge's first Boruvka round) is caught to hold the kernel.
+        reset_counts()
+        with capture_kernels(True) as cap:
+            r0, miss_ms = wall_ms(lambda: tsrv.submit(f0, tv).result(600))
+        r1, partial_ms = wall_ms(lambda: tsrv.submit(f1, tv).result(600))
+        t0 = time.perf_counter()
+        fut = tsrv.submit(f1, tv)
+        on_submit = fut.done()
+        hit_ms = (time.perf_counter() - t0) * 1e3
+        tier_launches = read_counts()
+        tier_stats = tsrv.cache_stats()
+        tier_entries = list(tsrv._cache._entries.values())
+    r2 = fut.result(timeout=0)
+    if tier_launches["ph_phase_c"] <= 0 or "best_edge" not in cap:
+        raise AssertionError(f"cache tier missed the best-edge kernel: "
+                             f"{tier_launches}")
+    tier_seam = check_best_edge(cap, err)
+    del cap
+    if (r0.delta.hit, r1.delta.hit) != ("miss", "partial") or \
+            r1.delta.n_dirty != len(fs.dirty_tiles(1)):
+        raise AssertionError(f"cache tier: {r0.delta}, {r1.delta}")
+    if not on_submit or r2 is not r1 or tier_stats["hits"] != 1:
+        raise AssertionError(f"cache tier: exact hit not resolved on the "
+                             f"submit thread ({tier_stats})")
+    cold = tier_eng.run_tiled(f1, tv)
+    if cold.regrow.attempts or not same_diagram(r1.diagram, cold.diagram):
+        raise AssertionError("cache tier: partial hit != run_tiled")
+    store = list(tier_eng._delta_cache._entries.values())
+    torch.cuda.synchronize()
+    cache_tier = dict(
+        grid=list(SERVE_TIER_GRID), threshold=tv,
+        hits=["miss", "partial", "exact (submit thread)"],
+        dirty_tiles=fs.dirty_tiles(1).tolist(), miss_ms=miss_ms,
+        partial_ms=partial_ms, exact_hit_ms=hit_ms,
+        count=int(r1.diagram.count), counters=tier_stats,
+        launches=tier_launches, seam_round=tier_seam,
+        tier_entries=len(tier_entries),
+        tier_device_bytes=sum(cuda_bytes(r.diagram) for r in tier_entries),
+        frame_store_entries=len(store),
+        frame_store_device_bytes=sum(
+            cuda_bytes([e.state, e.result.diagram]) for e in store),
+        engine_device_bytes=torch.cuda.memory_allocated() - mem0,
+        partial_equals_run_tiled=True)
+    del tier_eng, store, tier_entries, r0, r1, r2, cold
+
+    # -- the CLI ---------------------------------------------------------------
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.ph_serve",
+                          *SERVE_CLI], capture_output=True, text=True,
+                         env=env, timeout=600, cwd=ROOT)
+    cli_ms = (time.perf_counter() - t0) * 1e3
+    if out.returncode != 0:
+        raise AssertionError(f"ph_serve exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    head, body = out.stdout.split("\n", 1)
+    cli = json.loads(body)
+    if cli["serve"]["steady_state_traces"] != 0 or cli["serve"]["failed"] \
+            or cli["resolved"] != 64 or not cli["device"].startswith("cuda"):
+        raise AssertionError(f"ph_serve: {body[:2000]}")
+
+    emit("serving", buckets=[list(b) for b in spec.buckets],
+         batch_cap=SERVE_CAP, config=json.loads(cfg.to_json()),
+         warmup=info, warm_tiers=tiers, requests=len(requests),
+         clients=SERVE_CLIENTS, load_wall_ms=load_ms,
+         completed=stats["completed"], failed=stats["failed"],
+         steady_state_traces=0, regrows_after_warmup=0,
+         launches=launches, counters=counters, per_bucket=buckets,
+         run_check_ms=check_ms, equals_run=True,
+         sync_harvest_equals_async=True,
+         sync_harvest_counters=sync_counters,
+         sync_debug_error_dispatch=True, cache_tier=cache_tier,
+         cli=dict(args=list(SERVE_CLI), wall_ms=cli_ms,
+                  warmup=json.loads(head.split(" ", 1)[1]),
+                  resolved=cli["resolved"],
+                  steady_state_traces=cli["serve"]["steady_state_traces"],
+                  buckets={k: dict(e2e_p50_ms=v["e2e_s"]["p50"] * 1e3,
+                                   occupancy=v["occupancy"])
+                           for k, v in cli["serve"]["buckets"].items()}),
+         phase_s=time.perf_counter() - t_phase)
+    return {"launches": launches, "cache_tier_launches": tier_launches}
+
+
 def device_profile(fn) -> dict:
     """One run of ``fn`` under ``torch.profiler``: its host wall ms (with
     the profiler's own cost), the device time of its kernels and copies
@@ -2099,6 +2521,9 @@ def main() -> int:
     # -- 17. the distributed pipeline ----------------------------------------
     pipeline = phase_pipeline(reset_counts, read_counts, err)
 
+    # -- 18. PH-as-a-service ---------------------------------------------------
+    serving = phase_serving(reset_counts, read_counts, err)
+
     # -- kernel table, card, result ----------------------------------------
     kernels = [
         {"name": "ph_phase_a", "route": "cuda",
@@ -2106,6 +2531,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/ph_phase_a/kernel.py:52",
          "launches": launches["ph_phase_a"],
          "pipeline_launches": pipeline["launches"]["ph_phase_a"],
+         "serving_launches": serving["launches"]["ph_phase_a"],
          "max_abs_err": err["ph_phase_a"],
          "ms": a_ms, "device_ms": a_dev_ms, "plain_ms": a_plain_ms,
          "bound_ms": a_bound_ms, "bound_by": "bytes", "library_ms": None,
@@ -2117,6 +2543,9 @@ def main() -> int:
          "tiled_launches": tiled["launches"]["ph_phase_c"],
          "delta_launches": delta["launches"],
          "pipeline_launches": pipeline["launches"]["ph_phase_c"],
+         "serving_launches": serving["launches"]["ph_phase_c"],
+         "serving_cache_tier_launches":
+             serving["cache_tier_launches"]["ph_phase_c"],
          "max_abs_err": err["ph_phase_c"],
          "ms": e_ms, "device_ms": e_dev_ms, "plain_ms": e_plain_ms,
          "bound_ms": e_bound_ms, "bound_by": "bytes", "library_ms": e_lib_ms,

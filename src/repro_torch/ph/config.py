@@ -89,9 +89,13 @@ class TileSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ServeSpec:
-    """Serving-daemon policy (bucket set, fixed batch cap, queue bound,
-    tick interval, admission).  Carried as data: serving is still to be
-    ported (ROADMAP.md, queue 1 item 5)."""
+    """Serving-daemon policy of :class:`repro_torch.serving.PHServer`:
+    the bucket set a request is padded into, the fixed dispatch batch
+    (``batch_cap`` rows, padded by repeating a real request), the
+    per-bucket queue bound, the coalescing tick interval, and the
+    admission policy at a full queue (``"reject"`` or ``"block"``).
+    :meth:`repro_torch.ph.PHEngine.warmup` builds one single and one
+    ``batch_cap`` plan per bucket and walks their regrow chains."""
 
     buckets: tuple[tuple[int, int], ...] | None = None
     batch_cap: int = 4

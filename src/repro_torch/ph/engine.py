@@ -32,12 +32,15 @@ Counterpart of ``repro.ph.engine`` for the whole-image path:
   results stream to pinned host memory;
 * **the distributed pipeline** — :meth:`PHEngine.run_distributed` over a
   :class:`repro_torch.distributed.context.DistContext` (one executor per
-  device; :mod:`repro_torch.pipeline`).
+  device; :mod:`repro_torch.pipeline`);
+* **the warm plan pool** — :meth:`PHEngine.warmup` walks each serving
+  bucket's regrow chain with a worst-case dummy, so the serving daemon
+  (:mod:`repro_torch.serving`) builds no plan and regrows nothing in
+  steady state.
 
 The engine runs on the CUDA device unless the caller passes another
 ``device`` (the tests pass ``"cpu"``); without CUDA, ``PHEngine()`` raises
-instead of falling back.  Serving is still to be ported (ROADMAP.md,
-queue 1).
+instead of falling back.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ import functools
 import hashlib
 import math
 import threading
+import time
 from typing import Any, Callable
 
 import numpy as np
@@ -526,6 +530,90 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         t, _ = astro.filter_threshold(host, self.config.filter_level)
         return t
 
+    # -- warm plan pool ----------------------------------------------------
+
+    def warmup(self, bucket_shapes=None, *, batch_sizes=None, dtype=None,
+               truncated: bool = True) -> dict:
+        """Build the plans a steady-state request stream will hit and walk
+        their regrow chains, so no request pays for either.
+
+        ``bucket_shapes``: square sizes or ``(H, W)`` pairs; defaults to
+        the config's ``serve.buckets``.  For every bucket a **worst-case
+        dummy** goes through the normal dispatch-with-regrow path of the
+        **single**-image plan (``run``'s memo key ``("single", (H, W),
+        dtype)``) and of one **batched** plan per entry of ``batch_sizes``
+        (default: ``serve.batch_cap``, the fixed dispatch batch the daemon
+        pads every tick to; memo key ``("batched", (B, H, W), dtype)``).
+        The batched dummy is staged through the engine's
+        :class:`~repro_torch.ph.overlap.StagingPool` as a served batch is,
+        so with donation steady state reuses the warmed slots.  The sticky
+        regrow memo records the capacity tier each chain ends on; on the
+        card the first dispatch also builds and loads the kernels'
+        libraries, and the chain's last attempt leaves blocks of the
+        tier's sizes in the caching allocator.  ``truncated`` warms the
+        thresholded variants (what padded serving batches always run; the
+        inert ±inf threshold keeps every pixel).  ``dtype``: a torch dtype
+        or its name (default float32), before the config's dtype policy.
+
+        Returns ``{"plans", "traces", "seconds"}`` — the *new* plans and
+        plan builds this warmup added (a build is the port's trace).
+        """
+        spec = self.config.serve
+        if bucket_shapes is None:
+            if spec is None or spec.buckets is None:
+                raise ValueError("warmup needs bucket_shapes (or a config "
+                                 "serve spec with a fixed bucket set)")
+            bucket_shapes = spec.buckets
+        if batch_sizes is None:
+            batch_sizes = (spec.batch_cap,) if spec is not None else ()
+        if dtype is None:
+            dtype = torch.float32
+        elif not isinstance(dtype, torch.dtype):
+            dtype = getattr(torch, str(dtype))
+        sublevel = self.config.filtration == "sublevel"
+        inert = math.inf if sublevel else -math.inf
+        before = self.plan_stats()
+        t0 = time.perf_counter()
+        for shape in bucket_shapes:
+            shape = (int(shape), int(shape)) if isinstance(shape, int) \
+                else tuple(int(s) for s in shape)
+            # Stride-2 peak grid: under 8-connectivity the local maxima of
+            # an image form an independent set of the king graph, whose
+            # maximum size is ceil(h/2)*ceil(w/2) — exactly the peaks
+            # planted here (distinct heights, so no plateau merges them).
+            # No real image of this bucket produces more features, so the
+            # tier found here bounds the tier any steady dispatch needs.
+            dummy = torch.zeros(shape, dtype=dtype)
+            peaks = dummy[::2, ::2]
+            peaks.copy_(1 + torch.arange(peaks.numel()).reshape(peaks.shape))
+            if sublevel:
+                # The same worst case mirrored: the planted extrema must be
+                # the filtration's feature points (local minima).
+                dummy = -dummy
+            host = self.cast_input_host(dummy)
+            self._run_single(host.to(self.device),
+                             inert if truncated else None)
+            for b in batch_sizes:
+                self._warm_batched(host, int(b), inert, truncated)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        after = self.plan_stats()
+        return {"plans": after["plans"] - before["plans"],
+                "traces": after["traces"] - before["traces"],
+                "seconds": round(time.perf_counter() - t0, 4)}
+
+    def _warm_batched(self, host: torch.Tensor, b: int, inert: float,
+                      truncated: bool) -> None:
+        """A served batch's dispatch: ``b`` copies of ``host`` staged in a
+        pool slot, uploaded and run through :meth:`_begin_batch`."""
+        shape, dtype = (b, *host.shape), host.dtype
+        slot = self.staging.acquire((self.device,), shape, dtype,
+                                    threshold_dtype(dtype))
+        slot.host_batch.copy_(host.expand(shape))
+        slot.host_tvals.fill_(inert)
+        self._begin_batch(shape, dtype, truncated,
+                          self.staging.upload(slot))()
+
     # -- public entry points ----------------------------------------------
 
     def run(self, image, truncate_value: float | None = None) -> PHResult:
@@ -539,6 +627,11 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
             raise ValueError(f"expected 2D image, got shape {tuple(x.shape)}")
         if truncate_value is None:
             truncate_value = self.auto_threshold(image)
+        return self._run_single(x, truncate_value)
+
+    def _run_single(self, x: torch.Tensor, truncate_value) -> PHResult:
+        """:meth:`run` of a cast 2D image on the device at an explicit
+        threshold (``None``: untruncated)."""
         truncated = truncate_value is not None
         shape, dtype = tuple(x.shape), x.dtype
         if truncated:

@@ -6,6 +6,8 @@ reference package, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -559,3 +561,177 @@ def test_run_distributed_on_card_equals_per_image_runs():
         else:
             res = eng.run(astro.generate_image(i, size))
         assert _summarize(res.diagram) == sync.diagrams[i]
+
+
+def _serving_engine(overlap, buckets=(64, 128)):
+    from repro_torch.ph import OverlapSpec, ServeSpec
+    return PHEngine(PHConfig(
+        merge_impl="boruvka", phase_c_impl="fused", filter_level="filter_std",
+        serve=ServeSpec(buckets=buckets, batch_cap=4, tick_interval_s=0.001),
+        overlap=OverlapSpec() if overlap else None))
+
+
+def _serving_images(n, buckets=(64, 128), seed=19):
+    """Windows of an astro frame, sides 60-100 % of their bucket."""
+    rng = np.random.default_rng(seed)
+    frame = astro.generate_image(seed, max(buckets))
+    out = []
+    for k in range(n):
+        b = buckets[k % len(buckets)]
+        h, w = (int(rng.integers(int(b * 0.6), b + 1)) for _ in range(2))
+        out.append(np.ascontiguousarray(frame[:h, :w]))
+    return out
+
+
+def _same_rows(want, got):
+    assert np.array_equal(want.to_array(), got.to_array())
+    assert int(want.diagram.n_unmerged) == int(got.diagram.n_unmerged)
+    assert bool(want.diagram.overflow) == bool(got.diagram.overflow)
+
+
+@pytest.mark.cuda
+def test_warmed_server_on_card_builds_and_regrows_nothing():
+    """After ``warmup`` a served stream on the card builds no plan, regrows
+    nothing, launches phase A and best-edge, and never blocks the tick."""
+    _need_cuda()
+    from repro_torch.serving import PHServer
+    eng = _serving_engine(overlap=True)
+    imgs = _serving_images(12)
+    with PHServer(eng) as srv:
+        info = srv.warmup()
+        assert info["plans"] == info["traces"] > 0
+        regrows = len(eng.regrow_log)
+        ka.LIBRARY.launches = kc.LIBRARY.launches = 0
+        results = [f.result(timeout=300)
+                   for f in [srv.submit(im) for im in imgs]]
+        assert srv.steady_state_traces() == 0
+        st = srv.stats()
+    assert len(eng.regrow_log) == regrows
+    assert ka.LIBRARY.launches > 0 and kc.LIBRARY.launches > 0
+    assert st["failed"] == 0 and st["completed"] == len(imgs)
+    assert st["overlap"]["dispatch_syncs"] == 0
+    assert st["overlap"]["harvest_syncs"] > 0
+    ref = PHEngine(PHConfig(merge_impl="boruvka", phase_c_impl="fused"))
+    for im, res in zip(imgs, results):
+        _same_rows(ref.run(im, res.threshold), res)
+
+
+@pytest.mark.cuda
+def test_server_tick_dispatch_enqueues_without_blocking():
+    """The tick's dispatch of a warmed server (statistic, staging into a
+    reused pinned slot, upload) under sync debug mode "error", with the
+    harvest held back; resolving it afterwards gives ``run``'s rows."""
+    _need_cuda()
+    from repro_torch.serving import PHServer
+
+    class Deferred:
+        def __init__(self):
+            self.calls = []
+
+        def submit(self, fn, *args):
+            self.calls.append((fn, args))
+
+        def shutdown(self, wait=True):
+            calls, self.calls = self.calls, []
+            for fn, args in calls:
+                fn(*args)
+
+    eng = _serving_engine(overlap=True)
+    eng.warmup()
+    srv = PHServer(eng, start=False)
+    srv._harvest.shutdown(wait=True)
+    srv._harvest = deferred = Deferred()
+    imgs = _serving_images(3, buckets=(128,))
+    futs = [srv.submit(im) for im in imgs]
+    bucket, reqs = srv._next_batch()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handed = srv._dispatch(bucket, reqs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert handed, futs[0].exception()
+    assert not any(f.done() for f in futs) and len(deferred.calls) == 1
+    srv.shutdown()              # runs the held harvest
+    ref = PHEngine(PHConfig(merge_impl="boruvka", phase_c_impl="fused"))
+    for im, f in zip(imgs, futs):
+        res = f.result(timeout=0)
+        _same_rows(ref.run(im, res.threshold), res)
+    assert eng.overlap_counters.snapshot()["dispatch_syncs"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [False, True])
+def test_served_rows_are_host_tensors_equal_to_run(overlap):
+    """Served rows live in host memory whether the engine leaves its
+    batch's diagram on the card (no overlap) or streams it to pinned
+    memory, and equal ``run`` on the card."""
+    _need_cuda()
+    from repro_torch.serving import PHServer
+    eng = _serving_engine(overlap=overlap)
+    imgs = _serving_images(6)
+    with PHServer(eng) as srv:
+        results = [f.result(timeout=300)
+                   for f in [srv.submit(torch.from_numpy(im).cuda())
+                             for im in imgs]]
+    for im, res in zip(imgs, results):
+        assert all(f.device.type == "cpu" and not f.is_pinned()
+                   for f in res.diagram)
+        _same_rows(eng.run(im, res.threshold), res)
+
+
+@pytest.mark.cuda
+def test_saturated_server_meets_admission_with_flat_device_memory():
+    """Thresholds given (no statistic on the tick) and the harvest held:
+    the tick stages at most ``staging_depth`` batches, the queue fills and
+    admission rejects; two such rounds leave the same device memory and
+    no more staging slots than the depth, and every accepted request
+    equals ``run``."""
+    _need_cuda()
+    import threading
+
+    from repro_torch.ph import ServeSpec
+    from repro_torch.serving import AdmissionError, PHServer
+    eng = _serving_engine(overlap=True, buckets=(128,))
+    eng.warmup()
+    depth = eng.overlap_spec().staging_depth
+    spec = ServeSpec(buckets=((128, 128),), batch_cap=4, max_queue=4,
+                     tick_interval_s=0.0, admission="reject")
+    imgs = _serving_images(8, buckets=(128,))
+    tvs = [eng.auto_threshold(im) for im in imgs]
+    staged, memory, slots, served = [], [], [], []
+    real_async = eng.run_batch_async
+
+    def counted(*a, **kw):
+        staged.append(1)
+        return real_async(*a, **kw)
+
+    eng.run_batch_async = counted
+    for _ in range(2):
+        srv = PHServer(eng, spec=spec)
+        gate, finish = threading.Event(), srv._finish_batch
+        srv._finish_batch = lambda *a: (gate.wait(60), finish(*a))
+        staged.clear()
+        futs, rejected = [], False
+        try:
+            for k in range(200):
+                try:
+                    futs.append((k % 8, srv.submit(imgs[k % 8], tvs[k % 8])))
+                except AdmissionError:
+                    rejected = True
+                    break
+                time.sleep(0.01)
+            n_staged = len(staged)
+        finally:
+            gate.set()
+        assert srv.drain(300)
+        srv.shutdown()
+        assert rejected and n_staged <= depth
+        torch.cuda.synchronize()
+        memory.append(torch.cuda.memory_allocated())
+        slots.append(sum(len(v) for v in eng.staging._idle.values()))
+        served += futs
+    assert memory[0] == memory[1]
+    assert max(slots) <= depth
+    for k, f in served:
+        _same_rows(eng.run(imgs[k], tvs[k]), f.result(0))

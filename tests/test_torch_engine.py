@@ -283,7 +283,9 @@ def test_port_import_leaves_jax_out():
             "repro_torch.launch.ph_run, "
             "repro_torch.kernels.flash_attention, repro_torch.configs.base, "
             "repro_torch.models.model, repro_torch.models.convert, "
-            "repro_torch.launch.serve_lm; "
+            "repro_torch.launch.serve_lm, repro_torch.serving, "
+            "repro_torch.serving.server, repro_torch.serving.metrics, "
+            "repro_torch.launch.ph_serve; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "or m == 'repro'); "
