@@ -11,7 +11,8 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
              started together; ptxas's registers, shared memory and spills
              for each kernel of the five libraries;
 3. phase_a — the phase-A kernel against its plain version, bitwise
-             (``phase_a_cases``): the five dtypes, strip heights 1/8/16,
+             (``phase_a_cases``): the five dtypes, strip heights 1/8/16
+             (and 4/32 on the bucket, the 4096² frame and peak grids),
              ragged strips, ramps, a constant image; every width regime
              and its edges (S * W = 65,536 and a column either side, the
              widest cluster strip and a column more, widths 10240 and
@@ -141,7 +142,23 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
              over ``FrameSequence(0, 2048, grid=(4, 4))`` (a miss, a
              partial hit equal to ``run_tiled``, an exact hit resolved on
              the submit thread; the device memory it holds); and
-             ``python -m repro_torch.launch.ph_serve`` as a subprocess.
+             ``python -m repro_torch.launch.ph_serve`` as a subprocess;
+19. autotune — the phase-A kernel against its plain version at strip
+             heights 4 and 32 (the 4096² frame, the survey bucket, the
+             stride-2 peak grids; at 4096 columns S = 32 is a 3-block
+             cluster with a ragged last block) and its device time at S =
+             4/8/16/32; ``autotune`` of 4096² and 2048² float32 with every
+             strip height measured (model seconds against measured
+             seconds and spreads, their rank correlation, the ``"cuda"``
+             entries naming the card); ``autotune_grid`` of the 10240²
+             frame (candidates, ``per_tile_cost`` peaks, trials); a tuned
+             engine's ``run``, ``run_batch`` and ``run_tiled`` equal to
+             phases 5, 9 and 12 bitwise with phase-A and best-edge
+             launches (best-edge alone in ``run_tiled``), their steady
+             walls in turns with an untuned engine; lookups that launch
+             and write nothing; ``python -m
+             repro_torch.launch.ph_distances`` as a subprocess, its
+             matrices equal to ``distance_matrix`` in process.
 
 Every kernel is timed two ways: ``ms`` is one call's CUDA-event time
 (``cuda_ms``: the host's launch overhead falls inside the interval when it
@@ -165,8 +182,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
-FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+# The card's rates (H100 SXM data sheet) live with the port's cost model.
+from repro_torch.roofline.analysis import (  # noqa: E402
+    FP32_FLOPS as FP32_OPS_PER_S, HBM_BW as HBM_BYTES_PER_S,
+    PEAK_FLOPS as BF16_OPS_PER_S)
+
 MAIN_SIZE = 4096
 # A width of the paper's 10240² frames: phase A's strips of it at S = 8
 # take the kernel's cluster regime.
@@ -210,7 +230,15 @@ SERVE_ASYNC_CHECK = 8           # requests also served with a sync harvest
 SERVE_TIER_GRID = (4, 4)        # the cache tier's tiles over 2048² frames
 SERVE_CLI = ("--buckets", "64", "128", "--clients", "4", "--requests", "16",
              "--merge-impl", "boruvka")
-BF16_OPS_PER_S = 989e12          # H100 SXM bfloat16 tensor cores, dense
+# The autotune phase: the strip heights phase 3's cases did not reach, the
+# trials per measured candidate (every candidate of both searches is
+# measured; a 4096² call takes ~12 ms, so 10 trials cost ~1 s a search),
+# and the ph_distances CLI's frames.
+AUTOTUNE_STRIPS = (4, 32)
+AUTOTUNE_TRIALS = 10
+AUTOTUNE_GRID_TRIALS = 5       # a 10240² tiled call is ~0.15 s
+DIST_CLI_IMAGES = 6
+DIST_CLI_SIZE = 1024
 # flash_attention cases (B, H, KV, Sq, Skv, hd, causal, window): the six of
 # tests/test_kernels_flash_attention.py, then the LM's GQA 32/8 at hd 128
 # with a ragged length, hd 256, a window over a ragged length, a ragged
@@ -452,8 +480,10 @@ def phase_a_cases(dev, rng, err) -> int:
     and one column more, widths 10240 and 16384) at S = 8 and 16, with
     ragged last strips, column ramps, signed zeros, NaN pixels, uint8
     zeros at the borders and views whose base is not 16-byte aligned; a
-    bfloat16 tie storm, batches, the mixed batch's (5, 2048, 2048) bucket
-    with its fill padding, and the 4096² astro frame.  Returns the
+    bfloat16 tie storm, batches; the mixed batch's (5, 2048, 2048) bucket
+    with its fill padding, the 4096² astro frame and the stride-2 peak
+    grids at 4096² and 2048² at strip heights 1/4/8/16/32 (S = 32 at 4096
+    columns: a 3-block cluster with a ragged last block).  Returns the
     count."""
     import numpy as np
     import torch
@@ -532,12 +562,10 @@ def phase_a_cases(dev, rng, err) -> int:
     check(storm, None, 8, "bf16 tie storm (3, 2048, 2048)")
     check(to_device(rng.normal(size=(2, 17, 8193)) * 9, torch.int16, dev),
           None, 8, "batch (2, 17, 8193)")
-    bucket = survey_bucket(dev)
-    for s in (1, 8, 16):
-        check(bucket, None, s, "survey bucket (5, 2048, 2048)")
     x_main = torch.from_numpy(astro.generate_image(0, MAIN_SIZE)).to(dev)
-    for s in (1, 8, 16):
-        check(x_main, None, s, f"astro {MAIN_SIZE}²")
+    for label, x in tuned_strip_inputs(dev, x_main):
+        for s in (1, 8, 16) + AUTOTUNE_STRIPS:
+            check(x, None, s, label)
     return n
 
 
@@ -789,7 +817,7 @@ def phase_tiled(dev, frame, reset_counts, read_counts, err) -> dict:
     diagram must equal the provider run's bitwise.
     """
     import torch
-    from repro_torch.core import tiling
+    from repro_torch.core import diagram_to_numpy, tiling
     from repro_torch.core.packed_keys import key_pad, resolve_merge_keys
     from repro_torch.data import astro
     from repro_torch.kernels.ph_phase_c import kernel as kc
@@ -922,7 +950,8 @@ def phase_tiled(dev, frame, reset_counts, read_counts, err) -> dict:
          equals_run=True, equals_staged=True)
     return {"launches": launches, "threshold": tv, "grid": grid,
             "capacities": (mf, tf, tk), "seam_round": seam,
-            "count": int(res.diagram.count)}
+            "count": int(res.diagram.count),
+            "diagram": diagram_to_numpy(res.diagram)}
 
 
 def phase_delta(frame, tiled) -> dict:
@@ -1236,7 +1265,7 @@ def phase_pipeline(reset_counts, read_counts, err) -> dict:
             set(PIPELINE_SIZES)) or "seam" not in held:
         raise AssertionError(f"kernels not held at every size: {held}")
     tiled_grid = list(sync._resolve_grid((PIPELINE_TILED,) * 2,
-                                         cfg.tile))
+                                         "float32", cfg.tile))
     del loads, tiles
 
     # A staged round's dispatch side under sync debug mode "error": its
@@ -1691,6 +1720,321 @@ def phase_serving(reset_counts, read_counts, err) -> dict:
                            for k, v in cli["serve"]["buckets"].items()}),
          phase_s=time.perf_counter() - t_phase)
     return {"launches": launches, "cache_tier_launches": tier_launches}
+
+
+def tuned_strip_inputs(dev, x_main) -> list:
+    """The inputs phase A meets at the autotuner's strip heights: the
+    4096² astro frame, the mixed batch's (5, 2048, 2048) bucket and the
+    stride-2 peak grids the scalar searches measure on (4096², 2048²)."""
+    from repro_torch.roofline.autotune import peak_grid
+    return [(f"astro {MAIN_SIZE}²", x_main),
+            ("survey bucket (5, 2048, 2048)", survey_bucket(dev))] + [
+        (f"peak grid {n}²", peak_grid((n, n), "float32", dev))
+        for n in (MAIN_SIZE, BATCH_SIZE)]
+
+
+def rank_correlation(a, b) -> float | None:
+    """Spearman's rank correlation of two sequences (ties take their mean
+    rank); None when either is constant."""
+    import numpy as np
+
+    def ranks(x):
+        x = np.asarray(x, np.float64)
+        r = np.empty(len(x))
+        r[np.argsort(x, kind="stable")] = np.arange(len(x))
+        for v in np.unique(x):
+            r[x == v] = r[x == v].mean()
+        return r
+
+    ra, rb = ranks(a), ranks(b)
+    if ra.std() == 0 or rb.std() == 0:
+        return None
+    return float(np.corrcoef(ra, rb)[0, 1])
+
+
+def wall_turns(untuned, tuned) -> dict:
+    """Steady host walls (ms, each ending synchronized) of an untuned and
+    a tuned call in turns: untuned, tuned, tuned, untuned."""
+    u1, t1, t2, u2 = (wall_ms(fn)[1] for fn in (untuned, tuned, tuned,
+                                                untuned))
+    return {"untuned_ms": [u1, u2], "tuned_ms": [t1, t2]}
+
+
+def same_host_diagram(d, want) -> bool:
+    """A diagram against a host copy (``diagram_to_numpy``), every field."""
+    from repro_torch.core import diagram_to_numpy
+    import numpy as np
+    return all(np.array_equal(x, y) for x, y in
+               zip(diagram_to_numpy(d), want))
+
+
+def phase_autotune(dev, ref, reset_counts, read_counts, err) -> dict:
+    """Phase 19: the autotuner on the card.
+
+    a. The phase-A kernel against its plain version at strip heights 4
+       and 32 (``tuned_strip_inputs``; S = 32 at 4096 columns is a
+       3-block cluster with a ragged last block, at 2048 columns exactly
+       the 16-bit regime's 65,536 entries), and its device time at S = 4,
+       8, 16 and 32 on the 4096² frame beside its bound.
+    b. ``autotune`` of 4096² and 2048² float32 into a cache under
+       ``build/``, every candidate (the four strip heights) measured: each
+       candidate's model seconds, fastest measured seconds and the spread
+       of its trials, their rank correlation, the winner and whether the
+       default (S = 8) was kept; the entries must name the card.
+    c. ``autotune_grid`` of the 10240² frame under ``max_tile_pixels=1 <<
+       20``, every candidate measured: their ``per_tile_cost`` peaks,
+       model bytes, measured seconds and spreads, the rank correlation,
+       the winner and whether ``choose_grid``'s grid was kept.
+    d. A tuned engine (``MAIN_CONFIG`` with ``autotune`` on that cache)
+       through ``run`` of the 4096² frame, ``run_batch`` of the survey
+       batch and ``run_tiled`` of the 10240² frame (the host array, at
+       phase 12's threshold and final capacities): every diagram equal to
+       phases 5, 9 and 12's bitwise, the tuned knobs and grid in effect,
+       phase-A and best-edge launches (best-edge alone in ``run_tiled``:
+       the tiled path takes only the tuned grid, as in the reference, and
+       its per-tile phase A is keyed torch ops with no kernel); steady
+       walls in turns with an untuned engine (host clock; no claim).
+    e. Lookups (a miss, a hit, a grid) launch nothing and write nothing.
+    f. ``python -m repro_torch.launch.ph_distances`` as a subprocess: its
+       matrices equal ``distance_matrix`` in-process on the same frames
+       (bn bitwise, sw at rtol 1e-5).
+
+    ``ref`` holds the earlier phases' frames, thresholds and host
+    diagrams.  Returns the launches of the searches and the tuned runs.
+    """
+    import os
+
+    import numpy as np
+    import torch
+    from repro_torch.core.tiling import choose_grid, per_tile_cost
+    from repro_torch.data import astro
+    from repro_torch.kernels.ph_phase_a import kernel as ka
+    from repro_torch.ph import PHConfig, PHEngine, TileSpec
+    from repro_torch.roofline import autotune as at
+
+    t_phase = time.perf_counter()
+    name = torch.cuda.get_device_name()
+
+    # -- a. phase A at the tuned strip heights -------------------------------
+    if (ka.strip_layout(32, MAIN_SIZE), ka.strip_layout(32, BATCH_SIZE)) \
+            != (("cluster", 3), ("shared16", 1)):
+        raise AssertionError("unexpected width regimes at S = 32")
+    x_main = torch.from_numpy(ref["frame"]).to(dev)
+    n_cases = 0
+    for label, x in tuned_strip_inputs(dev, x_main):
+        for s in AUTOTUNE_STRIPS:
+            check_phase_a(x, s, label, err)
+            n_cases += 1
+    a_bound = phase_a_bound_ms(x_main)
+    strips = {}
+    for s in (4, 8, 16, 32):
+        dms = device_ms(lambda: ka.phase_a(x_main, strip_rows=s))
+        strips[s] = dict(device_ms=dms, bound_ms=a_bound,
+                         bound_share=a_bound / dms,
+                         layout=ka.strip_layout(s, MAIN_SIZE))
+
+    # -- b. the scalar searches ----------------------------------------------
+    cache = ROOT / "build" / "autotune_smoke.json"
+    cache.unlink(missing_ok=True)
+    reset_counts()
+    searches, best = {}, {}
+    for size in (MAIN_SIZE, BATCH_SIZE):
+        shape = (size, size)
+        n_cands = len(at.candidate_space(shape))
+        t0 = time.perf_counter()
+        best[size] = at.autotune(shape, "float32", path=cache,
+                                 measure_top=n_cands, trials=AUTOTUNE_TRIALS)
+        search_s = time.perf_counter() - t0
+        entry = at.load_cache(cache)[at.cache_key(shape, "float32")]
+        trials = entry["trials"]
+        if (best[size].source != "measured" or entry["device"] != name
+                or len(trials) != n_cands or n_cands != 4
+                or any(t["seconds"] is None for t in trials)):
+            raise AssertionError(f"scalar search {shape}: {entry}")
+        fastest = min(trials, key=lambda t: t["seconds"])
+        searches[size] = dict(
+            seconds=search_s, trials_per_candidate=AUTOTUNE_TRIALS,
+            winner=best[size].strip_rows,
+            default_kept=best[size].strip_rows == at.DEFAULTS.strip_rows,
+            fastest=fastest["strip_rows"],
+            model_first=trials[0]["strip_rows"],
+            fastest_model_rank=trials.index(fastest) + 1,
+            rank_correlation=rank_correlation(
+                [t["model_s"] for t in trials],
+                [t["seconds"] for t in trials]),
+            candidates=[dict(strip_rows=t["strip_rows"],
+                             model_s=t["model_s"], seconds=t["seconds"],
+                             spread_s=t["spread_s"],
+                             layout=ka.strip_layout(t["strip_rows"], size))
+                        for t in trials])
+
+    # -- c. the grid search --------------------------------------------------
+    tshape = (TILED_SIZE, TILED_SIZE)
+    n_grids = len(at.grid_candidates(tshape, max_tile_pixels=1 << 20))
+    t0 = time.perf_counter()
+    grid = at.autotune_grid(tshape, "float32", path=cache,
+                            max_tile_pixels=1 << 20, measure_top=n_grids,
+                            trials=AUTOTUNE_GRID_TRIALS)
+    grid_s = time.perf_counter() - t0
+    search_launches = read_counts()
+    gentry = at.load_cache(cache)[at.cache_key(tshape, "float32")]
+    if grid is None or gentry["tile_grid_source"] != "measured" \
+            or gentry["device"] != name or any(
+                t["seconds"] is None for t in gentry["tile_grid_trials"]):
+        raise AssertionError(f"grid search: {gentry}")
+    grid_rows = []
+    for t in gentry["tile_grid_trials"]:
+        gr, gc = t["grid"]
+        c = per_tile_cost((TILED_SIZE // gr, TILED_SIZE // gc), "float32",
+                          gr * gc, device=dev)
+        grid_rows.append(dict(t, phase_a_peak_bytes=c["phase_a"][
+            "peak_bytes_est"], phase_b_peak_bytes=c["phase_b"][
+            "peak_bytes_est"]))
+    torch.cuda.empty_cache()
+
+    # -- d. tuned runs against the earlier phases' diagrams -----------------
+    cfg = PHConfig(**MAIN_CONFIG)
+    tuned_cfg = cfg.replace(autotune=True, autotune_cache=str(cache))
+    runs, tuned_launches = {}, {}
+
+    def tuned_run(label, untuned, first, steady, want, kernels):
+        """The tuned engine's ``first`` call against ``want`` with its
+        launches, then ``untuned`` and ``steady`` in turns."""
+        reset_counts()
+        out, first_ms = wall_ms(first)
+        launches = read_counts()
+        if not same_host_diagram(out.diagram, want):
+            raise AssertionError(f"tuned {label} != its earlier phase")
+        if min(launches[k] for k in kernels) <= 0:
+            raise AssertionError(f"tuned {label} missed a kernel: "
+                                 f"{launches}")
+        for k, v in launches.items():
+            tuned_launches[k] = tuned_launches.get(k, 0) + v
+        untuned()                         # the untuned engine's first call
+        runs[label] = dict(first_call_ms=first_ms, launches=launches,
+                           equals_earlier_phase=True,
+                           **wall_turns(untuned, steady))
+        return out
+
+    frame = ref["frame"]
+    plain_e, tuned_e = PHEngine(cfg), PHEngine(tuned_cfg)
+    eff = tuned_e._effective_config((MAIN_SIZE, MAIN_SIZE), torch.float32)
+    if (eff.strip_rows, eff.tournament_width) != (
+            best[MAIN_SIZE].strip_rows, at.DEFAULTS.tournament_width):
+        raise AssertionError(f"tuned knobs not in effect: {eff}")
+    tv = ref["threshold"]
+    tuned_run("run", lambda: plain_e.run(frame, tv),
+              lambda: tuned_e.run(frame), lambda: tuned_e.run(frame, tv),
+              ref["main"],
+              ("ph_phase_a", "ph_phase_c"))
+    runs["run"]["strip_rows"] = eff.strip_rows
+
+    survey, survey_tv = ref["survey"], ref["survey_tv"]
+    plain_b, tuned_b = PHEngine(cfg), PHEngine(tuned_cfg)
+    eff_b = tuned_b._effective_config((BATCH_SIZE, BATCH_SIZE),
+                                      torch.float32)
+    if eff_b.strip_rows != best[BATCH_SIZE].strip_rows:
+        raise AssertionError(f"tuned batch knobs not in effect: {eff_b}")
+    tuned_run("run_batch", lambda: plain_b.run_batch(survey, survey_tv),
+              lambda: tuned_b.run_batch(survey),
+              lambda: tuned_b.run_batch(survey, survey_tv), ref["mixed"],
+              ("ph_phase_a", "ph_phase_c"))
+    runs["run_batch"]["strip_rows"] = eff_b.strip_rows
+
+    wide, tiled = ref["wide_frame"], ref["tiled"]
+    mf, tf, tk = tiled["capacities"]
+    tcfg = cfg.replace(max_features=mf, tile=TileSpec(
+        max_features_per_tile=tf, max_candidates_per_tile=tk))
+    plain_t = PHEngine(tcfg)
+    tuned_t = PHEngine(tcfg.replace(autotune=True,
+                                    autotune_cache=str(cache)))
+    ttv = tiled["threshold"]
+    rt = tuned_run("run_tiled", lambda: plain_t.run_tiled(wide, ttv),
+                   lambda: tuned_t.run_tiled(wide, ttv),
+                   lambda: tuned_t.run_tiled(wide, ttv), tiled["diagram"],
+                   ("ph_phase_c",))
+    if tuple(rt.config.tile.grid) != tuple(grid):
+        raise AssertionError(f"tuned grid {grid} not in effect: "
+                             f"{rt.config.tile.grid}")
+    runs["run_tiled"].update(grid=list(grid), untuned_grid=list(
+        tiled["grid"]), regrow_attempts=rt.regrow.attempts)
+    del rt
+    torch.cuda.empty_cache()
+
+    # -- e. a lookup launches nothing and writes nothing -----------------------
+    probe = PHEngine(tuned_cfg)
+    before = cache.read_bytes()
+    reset_counts()
+    t0 = time.perf_counter()
+    miss = probe._effective_config((1000, 1800), torch.float32)
+    miss_grid = probe._tuned_grid((1000, 1800), torch.float32)
+    hit = probe._effective_config((MAIN_SIZE, MAIN_SIZE), torch.float32)
+    lookup_ms = (time.perf_counter() - t0) * 1e3
+    if any(read_counts().values()) or miss is not probe.config \
+            or miss_grid is not None or hit.strip_rows != eff.strip_rows \
+            or cache.read_bytes() != before:
+        raise AssertionError("an autotune lookup launched, measured or "
+                             "wrote")
+
+    # -- f. the ph_distances CLI ---------------------------------------------
+    out_npz = ROOT / "build" / "ph_distances_smoke.npz"
+    out_npz.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli_args = ("--images", str(DIST_CLI_IMAGES), "--size",
+                str(DIST_CLI_SIZE), "--merge-impl", "boruvka", "--out",
+                str(out_npz))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "repro_torch.launch.ph_distances", *cli_args],
+                          capture_output=True, text=True, env=env,
+                          timeout=600, cwd=ROOT)
+    cli_ms = (time.perf_counter() - t0) * 1e3
+    if proc.returncode != 0:
+        raise AssertionError(f"ph_distances exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout[proc.stdout.index("{"):])
+    frames = np.stack([astro.generate_image(i, DIST_CLI_SIZE)
+                       for i in range(DIST_CLI_IMAGES)])
+    deng = PHEngine(PHConfig(merge_impl="boruvka"))
+    reset_counts()
+    sw, bn = deng.distance_matrix(deng.run_batch(frames), n_dirs=N_DIRS)
+    in_process_launches = read_counts()
+    with np.load(out_npz) as z:
+        cli_sw, cli_bn = z["sw"], z["bottleneck"]
+    sw, bn = sw.cpu().numpy(), bn.cpu().numpy()
+    if in_process_launches["ph_distance"] <= 0:
+        raise AssertionError("in-process distance missed its kernel")
+    if report["images"] != DIST_CLI_IMAGES or not np.array_equal(cli_bn, bn):
+        raise AssertionError("ph_distances bn != distance_matrix in process")
+    if not np.allclose(cli_sw, sw, rtol=1e-5, atol=0.0):
+        raise AssertionError("ph_distances sw != distance_matrix in process "
+                             "within rtol 1e-5")
+
+    emit("autotune", cache=str(cache.relative_to(ROOT)),
+         phase_a=dict(cases=n_cases, strip_rows=list(AUTOTUNE_STRIPS),
+                      bitwise_equal=True, shape=[MAIN_SIZE] * 2,
+                      by_strip_rows=strips),
+         searches=searches,
+         grid_search=dict(shape=list(tshape), seconds=grid_s,
+                          trials_per_candidate=AUTOTUNE_GRID_TRIALS,
+                          winner=list(grid), incumbent=list(
+                              choose_grid(tshape, 1 << 20)),
+                          rank_correlation=rank_correlation(
+                              [t["model_bytes"] for t in grid_rows],
+                              [t["seconds"] for t in grid_rows]),
+                          candidates=grid_rows),
+         search_launches=search_launches, tuned_runs=runs,
+         tuned_launches=tuned_launches, lookup_ms=lookup_ms,
+         lookup_launches=0,
+         cli=dict(args=list(cli_args[:-1]), wall_ms=cli_ms,
+                  images=report["images"], sw_mean=report["sw"]["mean"],
+                  bn_max=report["bottleneck"]["max"],
+                  bn_bitwise_equal=True, sw_max_rel_err=float(np.max(
+                      np.abs(cli_sw - sw) / np.maximum(np.abs(sw), 1e-30))),
+                  in_process_launches=in_process_launches),
+         phase_s=time.perf_counter() - t_phase)
+    return {"search_launches": search_launches,
+            "tuned_launches": tuned_launches}
 
 
 def device_profile(fn) -> dict:
@@ -2510,7 +2854,6 @@ def main() -> int:
     # -- 12-13. the tiled path and delta-PH at 10240² ------------------------
     tiled = phase_tiled(dev, wide_frame, reset_counts, read_counts, err)
     delta = phase_delta(wide_frame, tiled)
-    del wide_frame
 
     # -- 14-16. flash attention, LM serving, LM forward ----------------------
     fa = phase_flash_attention(dev, rng, err)
@@ -2524,6 +2867,14 @@ def main() -> int:
     # -- 18. PH-as-a-service ---------------------------------------------------
     serving = phase_serving(reset_counts, read_counts, err)
 
+    # -- 19. the autotuner ---------------------------------------------------
+    tuned = phase_autotune(dev, dict(
+        frame=frame, threshold=res.threshold,
+        main=diagram_to_numpy(res.diagram), survey=survey,
+        survey_tv=survey_tv, mixed=diagram_to_numpy(mres.diagram),
+        wide_frame=wide_frame, tiled=tiled), reset_counts, read_counts, err)
+    del wide_frame
+
     # -- kernel table, card, result ----------------------------------------
     kernels = [
         {"name": "ph_phase_a", "route": "cuda",
@@ -2532,6 +2883,10 @@ def main() -> int:
          "launches": launches["ph_phase_a"],
          "pipeline_launches": pipeline["launches"]["ph_phase_a"],
          "serving_launches": serving["launches"]["ph_phase_a"],
+         "autotune_search_launches":
+             tuned["search_launches"]["ph_phase_a"],
+         "autotune_tuned_run_launches":
+             tuned["tuned_launches"]["ph_phase_a"],
          "max_abs_err": err["ph_phase_a"],
          "ms": a_ms, "device_ms": a_dev_ms, "plain_ms": a_plain_ms,
          "bound_ms": a_bound_ms, "bound_by": "bytes", "library_ms": None,
@@ -2546,6 +2901,10 @@ def main() -> int:
          "serving_launches": serving["launches"]["ph_phase_c"],
          "serving_cache_tier_launches":
              serving["cache_tier_launches"]["ph_phase_c"],
+         "autotune_search_launches":
+             tuned["search_launches"]["ph_phase_c"],
+         "autotune_tuned_run_launches":
+             tuned["tuned_launches"]["ph_phase_c"],
          "max_abs_err": err["ph_phase_c"],
          "ms": e_ms, "device_ms": e_dev_ms, "plain_ms": e_plain_ms,
          "bound_ms": e_bound_ms, "bound_by": "bytes", "library_ms": e_lib_ms,

@@ -42,10 +42,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import weakref
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.core import packed_keys
 from repro_torch.core.grid import (fixed_point_iterate, gather_flat,
@@ -745,3 +748,94 @@ def tiled_pixhomology_stacks(pvals: torch.Tensor, pgidx: torch.Tensor,
         merge_keys=merge_keys, phase_c_impl=phase_c_impl,
         phase_c_block=phase_c_block, use_pallas=use_pallas, mark=mark)
     return negate_diagram(td, filtration)
+
+
+# ---------------------------------------------------------------------------
+# Per-tile cost model (the grid autotuner's footprint source)
+# ---------------------------------------------------------------------------
+
+class _LiveBytes(TorchDispatchMode):
+    """The bytes of the storages that ops allocate while active and that
+    are still alive, and their peak after each op.  An output whose
+    storage is one of the op's inputs (an in-place result or a view)
+    allocates nothing; a storage leaves the count when it is freed."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = self.peak = 0
+
+    def _free(self, nbytes: int) -> None:
+        self.live -= nbytes
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        seen = {t.untyped_storage().data_ptr()
+                for t in tree_leaves((args, kwargs))
+                if isinstance(t, torch.Tensor)}
+        for t in tree_leaves(out):
+            if not isinstance(t, torch.Tensor):
+                continue
+            storage = t.untyped_storage()
+            nbytes = storage.nbytes()
+            if nbytes and storage.data_ptr() not in seen:
+                seen.add(storage.data_ptr())
+                self.live += nbytes
+                weakref.finalize(storage, self._free, nbytes)
+        self.peak = max(self.peak, self.live)
+        return out
+
+
+def _tensor_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def _footprint(fn, args) -> tuple[Any, dict]:
+    """Run ``fn(*args)`` and report the reference's four memory fields."""
+    arg_bytes = _tensor_bytes(args)
+    with _LiveBytes() as count:
+        out = fn(*args)
+    out_bytes = _tensor_bytes(out)
+    temp = max(0, count.peak - out_bytes)
+    return out, {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
+                 "temp_bytes": temp,
+                 "peak_bytes_est": arg_bytes + out_bytes + temp}
+
+
+def per_tile_cost(tile_shape: tuple[int, int], dtype, n_tiles: int,
+                  tile_max_features: int = 2048,
+                  tile_max_candidates: int = 8192,
+                  merge_keys: str = "packed", *, device=None) -> dict:
+    """Run the per-tile phases on a stack of one worst-case tile and
+    report their memory footprint (the reference's keys).
+
+    The tile is the stride-2 peak grid (the most roots and candidates a
+    tile can hold) with an out-of-frame halo, on ``device`` (the CUDA
+    device by default).  Everything here scales with the *tile* shape
+    (plus the O(boundary) condensation table), never with the image.  Per
+    phase, ``argument_bytes`` and ``output_bytes`` are the sizes of its
+    input and output tensors, and ``temp_bytes`` the peak of the bytes it
+    holds beyond its outputs: the storages its ops allocate and have not
+    freed yet, counted after each op by a dispatch mode on either device
+    (so the count does not depend on the caching allocator's state; an
+    op's internal workspace is not seen).  ``peak_bytes_est`` is their
+    sum.
+    """
+    from repro_torch.roofline.autotune import peak_grid, dtype_name
+
+    tr, tc = int(tile_shape[0]), int(tile_shape[1])
+    dev = torch.device("cuda" if device is None else device)
+    pv = peak_grid((tr, tc), dtype_name(dtype), dev)
+    merge_keys = packed_keys.resolve_merge_keys(merge_keys, pv.dtype)
+    pv = split_tiles(pv, (1, 1), neg_inf(pv.dtype))
+    pg = halo_gidx_stack((tr, tc), (1, 1), [0], dev)
+    tv = torch.tensor(float("-inf"), device=dev)
+    ring = len(_ring_coords(tr, tc)[0])
+    out: dict = {"tile_shape": [tr, tc], "ring_pixels": ring,
+                 "table_entries": n_tiles * ring, "merge_keys": merge_keys}
+    a_out, out["phase_a"] = _footprint(tile_phase_a, (pv, pg))
+    _, out["phase_b"] = _footprint(functools.partial(
+        tile_phase_b, tile_max_candidates=tile_max_candidates,
+        tile_max_features=tile_max_features, truncated=True,
+        merge_keys=merge_keys), (pv, pg, a_out[0], tv))
+    return out

@@ -9,7 +9,8 @@ strategy) scheduling, executor self-loading (Variant 1), threshold
 filtering (Variant 2), work-log fault tolerance, per-image persistence
 diagram summaries, through the :mod:`repro_torch.ph` facade
 (``PHConfig.from_flags`` + ``PHEngine``).  It prints the reference's JSON
-block.
+block.  ``--autotune`` reads the tuned knobs of each image shape from the
+cache :mod:`repro_torch.roofline.autotune` writes.
 
 Heterogeneous datasets: ``--sizes 256 512 1024`` cycles image sizes over
 ``--images`` ids (shape-bucketed rounds, ``--bucket-rounding``); images
@@ -107,6 +108,14 @@ def main():
     ap.add_argument("--tournament-width", dest="tournament_width", type=int,
                     help="blockwise top-k tournament width (>= 2; any "
                          "width is bit-identical)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="fold cached autotuned (strip_rows, phase_c_block, "
+                         "tournament_width) into plans per image shape "
+                         "(repro_torch.roofline.autotune disk cache; "
+                         "missing entries fall back to the flags above)")
+    ap.add_argument("--autotune-cache", dest="autotune_cache",
+                    help="autotune cache path (default: "
+                         "artifacts/autotune_cache_torch.json)")
     ap.add_argument("--no-regrow", action="store_true",
                     help="surface overflow instead of auto-regrowing")
     ap.add_argument("--tile-grid", dest="tile_grid", metavar="RxC",

@@ -3,14 +3,17 @@
 The port's own copy of ``repro.ph.config``: the field names, defaults and
 validation are unchanged, so a JSON written by one package loads in the
 other with equal fields and an equal ``stage_signature()``, and
-:meth:`PHConfig.from_flags` reads the same command-line flags.  Fields the
-port does not act on yet (serving, autotune) are carried as data.
+:meth:`PHConfig.from_flags` reads the same command-line flags.
 
 ``use_pallas`` keeps its name for that round trip.  In the port it selects
 the hand-written CUDA kernels: ``None`` (or ``True``) runs them on CUDA
 tensors, ``False`` explicitly selects their plain PyTorch versions.  CPU
 tensors always take the plain versions.  ``interpret`` and
-``phase_c_block`` are TPU-kernel knobs with no effect here.
+``phase_c_block`` are TPU-kernel knobs with no effect here;
+``phase_c_block`` is carried for the autotune cache's schema.
+``autotune`` folds a disk-cache entry of
+:mod:`repro_torch.roofline.autotune` into the engine's plans per image
+shape family, as in the reference.
 """
 from __future__ import annotations
 
@@ -265,14 +268,17 @@ class PHConfig:
     # consulted when merge_impl="boruvka" (the scan merge has no phase-C
     # kernel); bit-identical either way.
     phase_c_impl: str = "fused"            # "fused" | "xla"
-    # Edge-block size of the TPU phase-C kernel (no effect in the port).
+    # Edge-block size of the TPU phase-C kernel (no effect in the port;
+    # carried for the autotune cache's schema).
     phase_c_block: int = 1024
     # Blockwise tournament width of the phase-C top-k selections (each
     # round keeps top-k of width*k candidates; any width >= 2 is
     # bit-identical — the autotuner picks it per shape).
     tournament_width: int = 2
-    # Autotuning of (strip_rows, phase_c_block, tournament_width) from a
-    # disk cache: not ported yet, the engine raises when it is on.
+    # Autotuning: fold the cached tuned (strip_rows, phase_c_block,
+    # tournament_width) and tile grid of each image shape family into the
+    # engine's plans (a pure disk-cache read; a miss keeps these fields).
+    # autotune_cache: the cache file (None = the port's default file).
     autotune: bool = False
     autotune_cache: str | None = None
     filter_level: FilterLevel = FilterLevel.VANILLA

@@ -36,7 +36,11 @@ Counterpart of ``repro.ph.engine`` for the whole-image path:
 * **the warm plan pool** — :meth:`PHEngine.warmup` walks each serving
   bucket's regrow chain with a worst-case dummy, so the serving daemon
   (:mod:`repro_torch.serving`) builds no plan and regrows nothing in
-  steady state.
+  steady state;
+* **autotuned knobs** — with ``config.autotune`` each image shape
+  family's cached tuned knobs (:mod:`repro_torch.roofline.autotune`)
+  fold into an effective config that keys its plans, and its tuned tile
+  grid into the tiled paths; the lookup never measures.
 
 The engine runs on the CUDA device unless the caller passes another
 ``device`` (the tests pass ``"cpu"``); without CUDA, ``PHEngine()`` raises
@@ -188,6 +192,10 @@ class PHEngine:
         self.regrow_log: list[dict] = []
         # The delta frame store, made at the first run_delta call.
         self._delta_cache = None
+        # Autotune memos per (shape, dtype name): the effective config and
+        # the tuned tile grid, so the disk cache is read once a family.
+        self._tuned: dict[tuple, PHConfig] = {}
+        self._tuned_grids: dict[tuple, tuple[int, int] | None] = {}
         # Overlap-engine accounting (transfers, blocking syncs by thread
         # role), bumped by the engine, the executor and the driver.
         self.overlap_counters = OverlapCounters()
@@ -247,10 +255,65 @@ class PHEngine:
         o = self.overlap_spec()
         return o.enabled and o.async_overflow
 
-    def _ph_kwargs(self, mf: int, mc: int, merge_keys: str) -> dict:
-        """Static arguments of one plan: capacities plus the stage
-        signature's knobs."""
+    # -- autotune lookup ---------------------------------------------------
+
+    def _tuned_params(self, shape2d, dtype):
+        """The disk-cache entry of this shape family for the engine's
+        device type (:func:`repro_torch.roofline.autotune.lookup`: a pure
+        read that never builds or measures)."""
+        from repro_torch.roofline import autotune
+        return autotune.lookup(tuple(shape2d), dtype,
+                               path=self.config.autotune_cache,
+                               backend=self.device.type)
+
+    def _effective_config(self, shape2d, dtype) -> PHConfig:
+        """The config with autotuned ``(strip_rows, phase_c_block,
+        tournament_width)`` folded in for this image shape family,
+        memoized per (shape, dtype).
+
+        With ``config.autotune`` on this is a pure disk-cache lookup — the
+        engine never measures; a missing cache entry keeps the config's
+        own fields.  The effective config's :meth:`PHConfig.plan_key`
+        keys the plan cache, so tuned knobs deterministically select
+        plans.
+        """
+        from repro_torch.roofline.autotune import dtype_name
         cfg = self.config
+        if not cfg.autotune:
+            return cfg
+        key = (tuple(shape2d), dtype_name(dtype))
+        with self._lock:
+            got = self._tuned.get(key)
+        if got is not None:
+            return got
+        tp = self._tuned_params(shape2d, dtype)
+        eff = cfg if tp.source == "default" else cfg.replace(
+            strip_rows=tp.strip_rows, phase_c_block=tp.phase_c_block,
+            tournament_width=tp.tournament_width)
+        with self._lock:
+            self._tuned[key] = eff
+        return eff
+
+    def _tuned_grid(self, shape2d, dtype) -> tuple[int, int] | None:
+        """Autotuned tile grid for this shape family — a pure disk-cache
+        lookup, memoized per (shape, dtype); ``None`` when autotune is off
+        or the cache has no ``tile_grid`` for the family."""
+        from repro_torch.roofline.autotune import dtype_name
+        if not self.config.autotune:
+            return None
+        key = (tuple(shape2d), dtype_name(dtype))
+        with self._lock:
+            if key in self._tuned_grids:
+                return self._tuned_grids[key]
+        tg = self._tuned_params(shape2d, dtype).tile_grid
+        with self._lock:
+            self._tuned_grids[key] = tg
+        return tg
+
+    def _ph_kwargs(self, mf: int, mc: int, merge_keys: str,
+                   cfg: PHConfig) -> dict:
+        """Static arguments of one plan: capacities plus the stage
+        signature's knobs of ``cfg`` (the effective config)."""
         return dict(max_features=mf, max_candidates=mc,
                     candidate_mode=cfg.candidate_mode,
                     merge_impl=cfg.merge_impl, merge_keys=merge_keys,
@@ -265,12 +328,14 @@ class PHEngine:
         """Plan for ``kind`` "single" (pixhomology) or "batched"."""
         callee = pixhomology if kind == "single" else batched_pixhomology
         mk = resolve_merge_keys(self.config.merge_keys, dtype)
+        eff = self._effective_config(tuple(shape)[-2:], dtype)
         key = (kind, tuple(shape), str(dtype), mf, mc, truncated,
-               self.config.plan_key())
+               eff.plan_key())
 
         def build(plan: Plan):
             plan.traces += 1
-            return functools.partial(callee, **self._ph_kwargs(mf, mc, mk))
+            return functools.partial(callee,
+                                     **self._ph_kwargs(mf, mc, mk, eff))
 
         return self.get_plan(key, build)
 
@@ -285,12 +350,13 @@ class PHEngine:
         ``M == dp_size`` rounds).  Devices run one after another.
         """
         mk = resolve_merge_keys(self.config.merge_keys, dtype)
+        eff = self._effective_config(tuple(shape)[-2:], dtype)
         key = ("sharded", ctx, tuple(shape), str(dtype), mf, mc,
-               self.config.plan_key())
+               eff.plan_key())
 
         def build(plan: Plan):
             plan.traces += 1
-            kw = self._ph_kwargs(mf, mc, mk)
+            kw = self._ph_kwargs(mf, mc, mk, eff)
 
             def compute(shards, tvals):
                 outs = []
@@ -391,13 +457,23 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
 
         return self.get_plan(key, build)
 
-    def _resolve_grid(self, shape2d, spec: TileSpec) -> tuple[int, int]:
-        """Tile grid for one image: the spec's explicit grid, else
-        ``choose_grid`` from the tile-pixel budget (the reference's
-        autotuned grid is not ported)."""
+    def _resolve_grid(self, shape2d, dtype, spec: TileSpec
+                      ) -> tuple[int, int]:
+        """Tile grid for one image: the spec's explicit grid, else the
+        autotuned grid (validated — a stale cache entry that no longer
+        divides the shape is ignored), else ``choose_grid`` from the
+        tile-pixel budget.  The winner lands in every tiled/delta plan
+        key."""
         from repro_torch.core import tiling
         if spec.grid is not None:
             return tuple(spec.grid)
+        tg = self._tuned_grid(shape2d, dtype)
+        if tg is not None:
+            try:
+                tiling.validate_grid(tuple(shape2d), tg)
+                return tg
+            except ValueError:
+                pass
         return tiling.choose_grid(tuple(shape2d), spec.max_tile_pixels)
 
     # -- capacity regrow ---------------------------------------------------
@@ -981,7 +1057,9 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         from repro_torch.core import tiling
         self._check_ctx(ctx)
         if grid is None:
-            grid = self._resolve_grid(tuple(provider.shape),
+            dtype = self.config.dtype if self.config.dtype is not None \
+                else np.dtype(provider.dtype).name
+            grid = self._resolve_grid(tuple(provider.shape), dtype,
                                       self._tile_spec())
         # Halo fill is the user-space inert extreme of the filtration.
         fill = math.inf if self.config.filtration == "sublevel" else None
@@ -1019,7 +1097,7 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
                 truncate_value = self.auto_threshold(image)
             shape, dtype = tuple(source.shape), source.dtype
             if grid is None:
-                grid = self._resolve_grid(shape, self._tile_spec())
+                grid = self._resolve_grid(shape, dtype, self._tile_spec())
         grid = tuple(grid)
         tiling.validate_grid(shape, grid)
         return source, shape, grid, dtype, truncate_value

@@ -6,6 +6,7 @@ reference package, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import json
 import time
 
 import numpy as np
@@ -735,3 +736,81 @@ def test_saturated_server_meets_admission_with_flat_device_memory():
     assert max(slots) <= depth
     for k, f in served:
         _same_rows(eng.run(imgs[k], tvs[k]), f.result(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_phase_a_kernel_at_tuned_strip_heights(dtype):
+    """The autotuner's strip heights 4 and 32: at S = 32 a 4096-wide strip
+    spans a cluster of 3 blocks whose last block is ragged (11, 11, 10
+    rows) and a 2048-wide strip fills exactly the 16-bit regime's 65,536
+    entries; on ragged last strips, the stride-2 peak grid the searches
+    measure on, and (float32) the 4096² astro frame and the survey
+    bucket."""
+    _need_cuda()
+    from repro_torch.roofline.autotune import peak_grid
+    assert ka.strip_layout(32, 4096) == ("cluster", 3)
+    assert ka.strip_layout(32, 2048) == ("shared16", 1)
+    assert 32 * 2048 == ka.NARROW_ENTRIES
+    for s in (4, 32):
+        for w in (2048, 4096):
+            h = 2 * s + 3
+            for levels in (None, 3):
+                _phase_a_equal(_image(dtype, (h, w), w + s, levels), s,
+                               (dtype, h, w, levels))
+        for size in (2048, 4096):
+            _phase_a_equal(peak_grid((size, size), dtype, "cuda"), s,
+                           (dtype, "peak grid", size))
+    if dtype == torch.float32:
+        frame = torch.from_numpy(astro.generate_image(0, 4096)).cuda()
+        frames = [astro.generate_window(i, 0, 0, h, w, size=2048)
+                  for i, (h, w) in enumerate(((2048, 2048), (2048, 1536),
+                                              (1536, 1536), (1024, 2048),
+                                              (1000, 1800)), start=10)]
+        bucket = torch.full((5, 2048, 2048), float("-inf"))
+        for i, f in enumerate(frames):
+            bucket[i, :f.shape[0], :f.shape[1]] = torch.from_numpy(f)
+        for s in (4, 32):
+            _phase_a_equal(frame, s, "astro 4096²")
+            _phase_a_equal(bucket.cuda(), s, "survey bucket")
+
+
+@pytest.mark.cuda
+def test_autotune_on_card_persists_cuda_entries(tmp_path):
+    """Both searches on the card write ``"cuda"`` entries that name it; a
+    tuned engine's lookup launches nothing, and its ``run`` and
+    ``run_tiled`` equal the untuned engine's through the kernels."""
+    _need_cuda()
+    from repro_torch.roofline import autotune as at
+    from repro_torch.ph import TileSpec
+    path = tmp_path / "cache.json"
+    ka.LIBRARY.launches = kc.LIBRARY.launches = 0
+    best = at.autotune((256, 256), "float32", path=path, measure_top=4,
+                       trials=2)
+    assert best.source == "measured"
+    assert ka.LIBRARY.launches > 0 and kc.LIBRARY.launches > 0
+    grid = at.autotune_grid((512, 512), torch.float32, path=path,
+                            max_tile_pixels=128 * 128, trials=1)
+    cache = json.loads(path.read_text())
+    scalar, tiled = cache["256x256|float32|cuda"], cache["512x512|float32|cuda"]
+    name = torch.cuda.get_device_name()
+    assert scalar["device"] == tiled["device"] == name
+    assert len(scalar["trials"]) == 4
+    assert all(t["seconds"] > 0 and t["spread_s"] >= 0
+               for t in scalar["trials"])
+    assert tuple(tiled["tile_grid"]) == grid
+    cfg = PHConfig(merge_impl="boruvka", filter_level="filter_std",
+                   tile=TileSpec(max_tile_pixels=128 * 128))
+    tuned = PHEngine(cfg.replace(autotune=True, autotune_cache=str(path)))
+    ka.LIBRARY.launches = kc.LIBRARY.launches = 0
+    eff = tuned._effective_config((256, 256), torch.float32)
+    assert tuned._tuned_grid((512, 512), torch.float32) == grid
+    assert ka.LIBRARY.launches == kc.LIBRARY.launches == 0
+    assert (eff.strip_rows, eff.tournament_width) == (
+        best.strip_rows, best.tournament_width)
+    small, big = astro.generate_image(1, 256), astro.generate_image(2, 512)
+    _same_diagrams(tuned.run(small).diagram, PHEngine(cfg).run(small).diagram)
+    assert ka.LIBRARY.launches > 0
+    res = tuned.run_tiled(big)
+    assert tuple(res.config.tile.grid) == grid and kc.LIBRARY.launches > 0
+    _same_diagrams(res.diagram, PHEngine(cfg).run_tiled(big).diagram)

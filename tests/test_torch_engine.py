@@ -285,7 +285,9 @@ def test_port_import_leaves_jax_out():
             "repro_torch.models.model, repro_torch.models.convert, "
             "repro_torch.launch.serve_lm, repro_torch.serving, "
             "repro_torch.serving.server, repro_torch.serving.metrics, "
-            "repro_torch.launch.ph_serve; "
+            "repro_torch.launch.ph_serve, repro_torch.roofline, "
+            "repro_torch.roofline.analysis, repro_torch.roofline.autotune, "
+            "repro_torch.launch.ph_distances; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "or m == 'repro'); "
