@@ -101,6 +101,24 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 16. lm_forward — ``Model.loss_fn`` forward at 2 x 2048 tokens: 40 flash
              launches, the loss equal to the plain-attention run's within
              ``LOSS_ATOL``, which the hidden-tile control must miss;
+16b. lm_moe — the mixture-of-experts decoders at their published width,
+             depth cut to fit the card (``MOE_DEPTH``: llama4 scout 12 of
+             48 layers, dbrx 8 of 40; random weights drawn on the card
+             from seed 0, the float32 router among them): ``serve`` as in
+             lm_serve with one flash launch per layer of the prefill and
+             nothing else, the depth and peak memory; the prefill's last
+             flash call (GQA 40/8, 48/8) against the plain version; logits
+             at ``MOE_POSITIONS`` of the kernel route against the plain
+             route, held on the rows whose tokens took the same experts
+             and kept the same pairs in every layer (the hidden-tile
+             control must fail there), with each layer's share of routes
+             that agree; teacher-forced ``decode_step`` against one
+             full-sequence forward at capacity factor E/k, where nothing
+             drops (the published 1.25 drops other tokens in the two:
+             read, not held), and the drop shares of prefill and decode
+             at 1.25; a prefill and a decode step under ``torch.profiler``
+             (GEMM, flash, sort/scatter/gather, the rest, idle share);
+             ``loss_fn`` at 2 x 2048 with its aux, finite;
 17. pipeline — ``run_distributed`` (the paper's Variant 1-3 job) over a
              survey of astro frames: ids 0-15 at sizes cycling 1024, 2048,
              4096, 2048 and id 16 at ``PIPELINE_TILED``² routed tiled by
@@ -271,11 +289,17 @@ FLASH_CASES = ((1, 1, 1, 128, 128, 64, True, None),
 # test states it; float32 compares without TF32.
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # The main path's own shapes (B, H, KV, S, hd), causal bfloat16, held to the
-# plain version element by element: lm_serve's prefill (the timed shape)
-# and lm_forward's.  q, k, v are (B, H, S, hd) views of (B, S, H, hd)
-# tensors, as the model passes them.
+# plain version element by element: lm_serve's prefill (the timed shape),
+# lm_forward's, and lm_moe's prefills (GQA 40/8 and 48/8, group ratios 5
+# and 6).  q, k, v are (B, H, S, hd) views of (B, S, H, hd) tensors, as
+# the model passes them.
 FLASH_SHAPE = (4, 32, 8, 1024, 128)
-FLASH_MAIN_SHAPES = (FLASH_SHAPE, (2, 32, 8, 2048, 128))
+FLASH_MAIN_SHAPES = (FLASH_SHAPE, (2, 32, 8, 2048, 128),
+                     (4, 40, 8, 1024, 128), (4, 48, 8, 1024, 128))
+# Head dims the kernel does not take (B, H, KV, S, hd): the op routes them
+# to the plain version by shape (phi3's 96, the smoke configs' 16) and
+# launches nothing; the kernel called directly refuses them.
+FLASH_PLAIN_ROUTE = ((2, 32, 8, 300, 96), (2, 4, 2, 64, 16))
 LM_ARCH = "mistral_nemo_12b"
 LM_SERVE = dict(batch=4, prompt_len=1024, gen_len=32, max_len=2048)
 LM_FORWARD = dict(batch=2, seq=2048)
@@ -289,6 +313,14 @@ TEACHER_STEPS = 8
 LOGIT_ATOL, LOGIT_RTOL = 0.25, 0.05
 LOSS_ATOL = 5e-4                 # mean cross-entropy over 4096 tokens
 CONTROL_KEYS = slice(320, 384)   # the sixth 64-key tile
+# lm_moe: the two MoE decoders at their published width, their depth cut
+# so that one 80 GB card holds the bfloat16 weights beside the KV caches,
+# the float32 head and the expert buffers (layers; the configs have 48
+# and 40).
+MOE_DEPTH = {"llama4_scout_17b_a16e": 12, "dbrx_132b": 8}
+# The prompt positions whose logits lm_moe holds kernel route against
+# plain route: every 64th token of each prompt, the last included.
+MOE_POSITIONS = tuple(range(63, LM_SERVE["prompt_len"], 64))
 # The design of each kernel.
 DESIGN = {"ph_phase_a": "one launch per strip: a 16-byte-vector stencil, "
                         "16-bit pointers and an escape table in shared "
@@ -684,6 +716,7 @@ def phase_flash_attention(dev, rng, err) -> dict:
     types; timed at the LM prefill's shape beside its bound and SDPA."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as kfa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as rfa
 
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -725,6 +758,26 @@ def phase_flash_attention(dev, rng, err) -> dict:
     errs["bfloat16"] = max(errs["bfloat16"], *main_errs)
     err["flash_attention"] = max(errs.values())
 
+    plain_route = []
+    for shape in FLASH_PLAIN_ROUTE:
+        q, k, v = views(*shape)
+        before = kfa.LIBRARY.launches
+        got = fa_ops.flash_attention(q, k, v, True, None)
+        launched = kfa.LIBRARY.launches - before
+        if launched or fa_ops.kernel_route(q) or not torch.equal(
+                got, rfa.attention(q, k, v, causal=True)):
+            raise AssertionError(f"the op at head dim {shape[-1]} did not "
+                                 f"take the plain route ({launched} flash "
+                                 f"launches)")
+        try:
+            kfa.flash_attention_fwd(q, k, v, causal=True)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"the kernel took head dim {shape[-1]}")
+        plain_route.append({"shape": list(shape), "launches": launched,
+                            "equal_to_plain": True, "kernel_refuses": True})
+
     b, h, kv, s, hd = FLASH_SHAPE
     q, k, v = views(*FLASH_SHAPE)
     plain_ms = cuda_ms(lambda: rfa.attention(q, k, v, causal=True), reps=3)
@@ -750,7 +803,8 @@ def phase_flash_attention(dev, rng, err) -> dict:
     emit("flash_attention", cases=len(FLASH_CASES) * len(dtypes),
          tolerance=FLASH_TOL, max_abs_err=errs,
          main_shapes=[list(t) for t in FLASH_MAIN_SHAPES],
-         main_shape_max_abs_err=main_errs, timed_shape=list(
+         main_shape_max_abs_err=main_errs, plain_route=plain_route,
+         timed_shape=list(
              FLASH_SHAPE), timed_dtype="bfloat16", causal=True,
          kernel_ms=ms, device_ms=timed["device_ms"], plain_ms=plain_ms,
          library_ms_sdpa=lib_ms,
@@ -2063,14 +2117,20 @@ def device_profile(fn) -> dict:
     if not by_name:                     # the profiler saw no device work
         return {"wall_ms": wall_ms, "device_busy_ms": None}
     # "copy": dtype casts and copies (the float32 widening of the head and
-    # of the KV cache among them).
-    kinds = {"flash_attention": 0.0, "gemm": 0.0, "copy": 0.0, "other": 0.0}
+    # of the KV cache among them); "sort_scatter_gather": sorts,
+    # searchsorted and indexing (the MoE dispatch and combine, the
+    # embedding lookup).
+    kinds = {"flash_attention": 0.0, "gemm": 0.0, "sort_scatter_gather": 0.0,
+             "copy": 0.0, "other": 0.0}
     for name, ms in by_name.items():
         low = name.lower()
         if "flash_fwd" in low:
             kinds["flash_attention"] += ms
         elif any(w in low for w in ("gemm", "xmma", "nvjet", "cutlass")):
             kinds["gemm"] += ms
+        elif any(w in low for w in ("sort", "scatter", "gather", "index",
+                                    "searchsorted")):
+            kinds["sort_scatter_gather"] += ms
         elif "copy" in low:
             kinds["copy"] += ms
         else:
@@ -2116,6 +2176,36 @@ class plain_attention_replaced:
         rfa.attention = self.saved
 
 
+def held_flash_call(label: str, fn):
+    """Run ``fn`` with the flash kernel's wrapper recording its
+    arguments, then launch its last call again and hold it to the plain
+    version element by element at ``FLASH_TOL["bfloat16"]``.  Returns
+    (``fn()``, that call's shapes, strides, options and max |diff|)."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as kfa
+    from repro_torch.kernels.flash_attention import ref as rfa
+
+    launch, captured = kfa.flash_attention_fwd, {}
+
+    def capture(q, k, v, **kw):
+        captured.update(q=q, k=k, v=v, kw=kw)
+        return launch(q, k, v, **kw)
+
+    kfa.flash_attention_fwd = capture
+    try:
+        out = fn()
+    finally:
+        kfa.flash_attention_fwd = launch
+    q, k, v, kw = (captured[n] for n in ("q", "k", "v", "kw"))
+    got, want = launch(q, k, v, **kw), rfa.attention(q, k, v, **kw)
+    layer_err, tol = max_abs_diff(got, want), FLASH_TOL["bfloat16"]
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        raise AssertionError(f"{label}: flash kernel != plain on the last "
+                             f"call: max |diff| {layer_err} over {tol}")
+    return out, {"q": list(q.shape), "q_strides": list(q.stride()),
+                 "k": list(k.shape), **kw, "max_abs_err": layer_err}
+
+
 def logit_reading(got, want) -> dict:
     """max |got - want| and its largest ratio to the logit tolerance
     (``torch.allclose`` passes exactly when the ratio is at most 1)."""
@@ -2144,8 +2234,6 @@ def phase_lm_serve(dev, reset_counts, read_counts) -> dict:
     through the plain attention and to teacher-forced decoding."""
     import torch
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.flash_attention import kernel as kfa
-    from repro_torch.kernels.flash_attention import ref as rfa
     from repro_torch.launch import serve_lm
     from repro_torch.models import transformer
     from repro_torch.models.model import Model
@@ -2176,29 +2264,11 @@ def phase_lm_serve(dev, reset_counts, read_counts) -> dict:
     prompts = torch.from_numpy(serve_lm.make_prompts(
         cfg.vocab_size, b, p, 0)).to(dev).long()
     batch = {"tokens": prompts}
-    # The same prefill again, keeping the last layer's q, k, v as the
-    # model hands them to the kernel, to hold that call element by element.
-    launch, captured = kfa.flash_attention_fwd, {}
-
-    def capture(q, k, v, **kw):
-        captured.update(q=q, k=k, v=v, kw=kw)
-        return launch(q, k, v, **kw)
-
-    kfa.flash_attention_fwd = capture
-    try:
-        logits, caches = model.prefill(params, batch,
-                                       max_len=LM_SERVE["max_len"])
-    finally:
-        kfa.flash_attention_fwd = launch
-    q, k, v, kw = (captured[n] for n in ("q", "k", "v", "kw"))
-    got, want = launch(q, k, v, **kw), rfa.attention(q, k, v, **kw)
-    layer_err, tol = max_abs_diff(got, want), FLASH_TOL["bfloat16"]
-    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
-        raise AssertionError(f"flash kernel != plain on the prefill's last "
-                             f"layer: max |diff| {layer_err} over {tol}")
-    layer_call = {"q": list(q.shape), "q_strides": list(q.stride()),
-                  "k": list(k.shape), **kw, "max_abs_err": layer_err}
-    del q, k, v, got, want, captured
+    # The same prefill again, its last layer's flash call (q, k, v as the
+    # model hands them to the kernel) held element by element.
+    (logits, caches), layer_call = held_flash_call(
+        f"{LM_ARCH} prefill", lambda: model.prefill(
+            params, batch, max_len=LM_SERVE["max_len"]))
 
     plain_logits, _ = Model(cfg, plain=True).prefill(
         params, batch, max_len=LM_SERVE["max_len"])
@@ -2224,7 +2294,7 @@ def phase_lm_serve(dev, reset_counts, read_counts) -> dict:
 
     def full_forward(plain: bool):
         with torch.no_grad():
-            h, _ = transformer.backbone(params, transformer.embed_tokens(
+            h, _, _ = transformer.backbone(params, transformer.embed_tokens(
                 params, torch.cat([prompts, forced], dim=1)), plain=plain)
             return transformer.logits_from_hidden(params, h[:, p - 1:])
 
@@ -2290,6 +2360,254 @@ def phase_lm_forward(dev, params, reset_counts, read_counts) -> None:
          plain_loss=plain, control_loss=control,
          loss_atol=LOSS_ATOL, wall_ms=wall_ms, launches=launches,
          max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+class moe_routes_recorded:
+    """Within the block, each MoE layer call records its router's expert
+    ids (T, k) and which of its (token, slot) pairs it kept, in call order
+    (one entry per layer of a forward or a decode step)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.saved, calls = moe._dispatch_indices, []
+
+        def record(idx, spec, capacity):
+            out = self.saved(idx, spec, capacity)
+            tok_s, slot_s, _, _, keep = out
+            pair_keep = torch.empty_like(keep).scatter_(
+                0, tok_s * idx.shape[1] + slot_s, keep)
+            calls.append((idx.clone(), pair_keep.view(idx.shape)))
+            return out
+
+        moe._dispatch_indices = record
+        return calls
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._dispatch_indices = self.saved
+
+
+def drop_share(calls) -> float:
+    """Share of the recorded (token, slot) pairs that were dropped."""
+    kept = sum(int(keep.sum()) for _, keep in calls)
+    return 1.0 - kept / sum(keep.numel() for _, keep in calls)
+
+
+def held_readings(label: str, sound: tuple, control: tuple, held) -> dict:
+    """``logit_reading`` of the (got, want) pairs ``sound`` and
+    ``control`` over the rows ``held`` (a bool mask over their leading
+    dims) and over all rows.  The held rows are those whose tokens took
+    the same experts, and kept the same pairs, in every layer of both
+    runs: a token that a rounding difference sent to another expert has
+    other logits by design, not by error.  The hold rule then applies to
+    the held rows, of which there must be at least one."""
+    if not bool(held.any()):
+        raise AssertionError(f"{label}: no row routed alike in both runs")
+    out = {"rows": held.numel(), "held_rows": int(held.sum()),
+           "all_rows": logit_reading(*sound),
+           "all_rows_control": logit_reading(*control),
+           "held": logit_reading(sound[0][held], sound[1][held]),
+           "held_control": logit_reading(control[0][held],
+                                         control[1][held])}
+    hold(label, out["held"]["tol_ratio"], out["held_control"]["tol_ratio"])
+    return out
+
+
+def lm_moe_one(dev, arch: str, depth: int, reset_counts,
+               read_counts) -> int:
+    """One MoE decoder at full width and ``depth`` layers: ``serve``,
+    its prefill's last flash call against the plain version, logits of
+    the kernel route against the plain route, teacher-forced decode
+    against the full sequence, profiles and ``loss_fn``.  Returns
+    ``serve``'s flash launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model
+
+    t_phase = time.perf_counter()
+    full = get_config(arch)
+    cfg = full.replace(num_layers=depth)
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg)                          # device left at its default
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in params.parameters())
+    reset_counts()
+    gen, stats = serve_lm.serve(arch, smoke=False, params=params,
+                                verbose=False, **LM_SERVE)
+    launches = read_counts()
+    want = dict.fromkeys(launches, 0) | {"flash_attention": depth}
+    if launches != want:
+        raise AssertionError(f"{arch}: serve launched {launches}, expected "
+                             f"{want} (one flash launch per layer of the "
+                             f"prefill)")
+    if gen.shape != (LM_SERVE["batch"], LM_SERVE["gen_len"]) or \
+            gen.min() < 0 or gen.max() >= cfg.vocab_size:
+        raise AssertionError(f"{arch}: serve tokens out of range")
+
+    b, p, max_len = (LM_SERVE[k] for k in ("batch", "prompt_len", "max_len"))
+    prompts = torch.from_numpy(serve_lm.make_prompts(
+        cfg.vocab_size, b, p, 0)).to(dev).long()
+    batch = {"tokens": prompts}
+    with moe_routes_recorded() as prefill_routes:
+        (logits, caches), layer_call = held_flash_call(
+            f"{arch} prefill", lambda: model.prefill(params, batch,
+                                                     max_len=max_len))
+    if not (torch.argmax(logits[:, -1], -1).cpu().numpy()
+            == gen[:, 0]).all():
+        raise AssertionError(f"{arch}: prefill's greedy token != serve's")
+
+    def logits_at(prm, tokens, positions, plain):
+        with torch.no_grad():
+            h, _, _ = transformer.backbone(
+                prm, transformer.embed_tokens(prm, tokens), plain=plain)
+            return transformer.logits_from_hidden(prm, h[:, positions])
+
+    # Teacher-forced decode at the published capacity factor: its
+    # capacity (ceil(B·k·cf/E)) and the full sequence's (the floor over
+    # B·S tokens) drop other tokens, so it is read, not held.
+    forced = torch.from_numpy(gen[:, :TEACHER_STEPS]).to(dev).long()
+    seq = torch.cat([prompts, forced], dim=1)
+    tail = torch.arange(p - 1, p + TEACHER_STEPS, device=dev)
+    steps = [logits[:, 0]]
+    with moe_routes_recorded() as decode_routes:
+        for j in range(TEACHER_STEPS):
+            lg, caches = model.decode_step(params, forced[:, j:j + 1],
+                                           caches)
+            steps.append(lg[:, 0])
+    published_decode = logit_reading(torch.stack(steps, 1),
+                                     logits_at(params, seq, tail, False))
+    drops = {"prefill": drop_share(prefill_routes),
+             "decode": drop_share(decode_routes)}
+    del steps, logits, prefill_routes, decode_routes
+
+    # Logits at MOE_POSITIONS: kernel route against plain route, with
+    # the hidden-tile control, on the rows routed alike in both runs.
+    positions = torch.tensor(MOE_POSITIONS, device=dev)
+    with moe_routes_recorded() as kernel_routes:
+        k_logits = logits_at(params, prompts, positions, False)
+    with moe_routes_recorded() as plain_routes:
+        p_logits = logits_at(params, prompts, positions, True)
+    with plain_attention_replaced(hidden_tile_attention):
+        c_logits = logits_at(params, prompts, positions, True)
+    route_shares = [float((ki == pi).float().mean()) for (ki, _), (pi, _)
+                    in zip(kernel_routes, plain_routes)]
+    alike = torch.stack([((ki == pi) & (kk == pk)).all(1) for (ki, kk),
+                         (pi, pk) in zip(kernel_routes, plain_routes)])
+    alike = alike.all(0).view(b, p)
+    logits_read = held_readings(
+        f"{arch} logits kernel vs plain", (k_logits, p_logits),
+        (c_logits, p_logits), alike[:, positions])
+    del k_logits, p_logits, c_logits, kernel_routes, plain_routes
+
+    # Teacher-forced decode against one full-sequence forward, on the
+    # same weights at capacity_factor = E / k, where no pair can drop.
+    nd_cfg = cfg.replace(capacity_factor=cfg.num_experts / cfg.top_k)
+    nd = transformer.params_from_state(nd_cfg, params.state_dict(),
+                                       device=dev)
+    nd_model = Model(nd_cfg)
+    with moe_routes_recorded() as nd_prefill:
+        lg, nd_caches = nd_model.prefill(nd, batch, max_len=max_len)
+    steps = [lg[:, 0]]
+    with moe_routes_recorded() as nd_decode:
+        for j in range(TEACHER_STEPS):
+            lg, nd_caches = nd_model.decode_step(nd, forced[:, j:j + 1],
+                                                 nd_caches)
+            steps.append(lg[:, 0])
+    steps = torch.stack(steps, 1)
+    del nd_caches
+    with moe_routes_recorded() as nd_full:
+        full_lg = logits_at(nd, seq, tail, False)
+    with plain_attention_replaced(hidden_tile_attention):
+        ctrl_lg = logits_at(nd, seq, tail, True)
+    if drop_share(nd_prefill + nd_decode + nd_full) != 0.0:
+        raise AssertionError(f"{arch}: a pair dropped at capacity factor "
+                             f"E / k")
+    # Row (b, j) is the logits of the token at position p - 1 + j: the
+    # prompt's last (from the prefill) or decode step j - 1's.
+    alike = torch.ones(b, TEACHER_STEPS + 1, dtype=torch.bool, device=dev)
+    kk = cfg.top_k
+    for layer, (fi, fk) in enumerate(nd_full):
+        fi = fi.view(b, p + TEACHER_STEPS, kk)[:, p - 1:]
+        fk = fk.view(b, p + TEACHER_STEPS, kk)[:, p - 1:]
+        pi, pk = (t.view(b, p, kk)[:, -1] for t in nd_prefill[layer])
+        runs = [(pi, pk)] + [nd_decode[j * depth + layer]
+                             for j in range(TEACHER_STEPS)]
+        for j, (ri, rk) in enumerate(runs):
+            alike[:, j] &= ((fi[:, j] == ri) & (fk[:, j] == rk)).all(-1)
+    decode_read = held_readings(
+        f"{arch} teacher-forced decode vs full sequence (no drops)",
+        (steps, full_lg), (steps, ctrl_lg), alike)
+    del nd, steps, full_lg, ctrl_lg, nd_prefill, nd_decode, nd_full
+
+    prefill_prof = device_profile(lambda: model.prefill(
+        params, batch, max_len=max_len))
+    decode_prof = device_profile(lambda: model.decode_step(
+        params, forced[:, :1], caches))
+    del caches
+
+    lb, ls = LM_FORWARD["batch"], LM_FORWARD["seq"]
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                             (lb, ls + 1))
+    toks = torch.from_numpy(toks).to(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss, metrics = model.loss_fn(params, {
+            "inputs": toks[:, :-1], "targets": toks[:, 1:],
+            "mask": torch.ones(lb, ls, device=dev)})
+        torch.cuda.synchronize()
+    loss_ms = (time.perf_counter() - t0) * 1e3
+    loss_launches = read_counts()
+    loss, aux = float(loss), float(metrics["aux"])
+    if loss_launches["flash_attention"] != depth or not (
+            math.isfinite(loss) and math.isfinite(aux) and aux > 0):
+        raise AssertionError(f"{arch}: loss_fn launched {loss_launches}, "
+                             f"loss {loss}, aux {aux}")
+    peak = torch.cuda.max_memory_allocated()
+    emit("lm_moe", arch=arch, layers=depth, published_layers=full.num_layers,
+         d_model=cfg.d_model, heads=[cfg.num_heads, cfg.num_kv_heads],
+         head_dim=cfg.head_dim, d_ff=cfg.d_ff, experts=cfg.num_experts,
+         top_k=cfg.top_k, router=cfg.router_type,
+         capacity_factor=cfg.capacity_factor, norm=cfg.norm_type,
+         shared_expert=cfg.moe_shared_expert, params=n_params,
+         dtype=cfg.dtype, resident_bytes_before=resident, **LM_SERVE,
+         init_s=init_s, prefill_ms=stats["prefill_ms"],
+         decode_tokens_per_s=stats["decode_tokens_per_s"],
+         launches=launches, max_memory_allocated=peak,
+         last_layer_flash_call=layer_call,
+         logit_tolerance=[LOGIT_ATOL, LOGIT_RTOL],
+         control_hidden_keys=[CONTROL_KEYS.start, CONTROL_KEYS.stop],
+         route_agreement_by_layer=route_shares,
+         drop_share_published_factor=drops,
+         logit_positions=list(MOE_POSITIONS),
+         logits_kernel_vs_plain=logits_read,
+         no_drop_capacity_factor=nd_cfg.capacity_factor,
+         teacher_forced_steps=TEACHER_STEPS,
+         decode_vs_full_no_drop=decode_read,
+         decode_vs_full_published_factor=published_decode,
+         prefill_profile=prefill_prof, decode_step_profile=decode_prof,
+         loss_batch=[lb, ls], loss=loss, ce=float(metrics["ce"]), aux=aux,
+         loss_ms=loss_ms, loss_launches=loss_launches,
+         sample_output=stats["sample_output"],
+         phase_s=time.perf_counter() - t_phase)
+    return launches["flash_attention"]
+
+
+def phase_lm_moe(dev, reset_counts, read_counts) -> dict:
+    """Both MoE decoders of ``MOE_DEPTH``, one after the other (each
+    one's weights are freed before the next is drawn).  Returns serve's
+    flash launches by arch."""
+    return {arch: lm_moe_one(dev, arch, depth, reset_counts, read_counts)
+            for arch, depth in MOE_DEPTH.items()}
 
 
 def main() -> int:
@@ -2855,10 +3173,12 @@ def main() -> int:
     tiled = phase_tiled(dev, wide_frame, reset_counts, read_counts, err)
     delta = phase_delta(wide_frame, tiled)
 
-    # -- 14-16. flash attention, LM serving, LM forward ----------------------
+    # -- 14-16b. flash attention, LM serving, LM forward, the MoE decoders --
     fa = phase_flash_attention(dev, rng, err)
     lm = phase_lm_serve(dev, reset_counts, read_counts)
     phase_lm_forward(dev, lm.pop("params"), reset_counts, read_counts)
+    torch.cuda.empty_cache()                    # the 12 B weights are gone
+    moe_launches = phase_lm_moe(dev, reset_counts, read_counts)
     torch.cuda.empty_cache()
 
     # -- 17. the distributed pipeline ----------------------------------------
@@ -2935,6 +3255,7 @@ def main() -> int:
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:35",
          "launches": lm["launches"]["flash_attention"],
+         "moe_launches": moe_launches,
          "max_abs_err": err["flash_attention"], **fa,
          "design": DESIGN["flash_attention"]},
     ]

@@ -4,9 +4,9 @@ The port's own copy of ``repro.configs.base``: the same fields, defaults and
 numbers, so a config compares equal field by field across the packages.
 The sharding and rematerialisation knobs (``scan_layers``, ``remat``,
 ``seq_shard``) are carried as data; the port runs one device and eager
-layers.  Only the dense decoders whose blocks the port runs are
-registered (``ARCH_IDS``); the others need block kinds still to be ported
-(ROADMAP.md, queue 1 item 7).
+layers.  Only the decoders whose blocks the port runs are registered
+(``ARCH_IDS``: attention blocks with dense MLPs or mixtures of experts);
+the others need block kinds still to be ported (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -92,8 +92,10 @@ SHAPES = {
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
 
-# The architectures whose blocks the port runs (dense attention decoders).
-ARCH_IDS = ["mistral_nemo_12b", "qwen1_5_0_5b"]
+# The architectures whose blocks the port runs (attention decoders, dense
+# or mixture-of-experts).
+ARCH_IDS = ["llama4_scout_17b_a16e", "dbrx_132b", "chameleon_34b",
+            "gemma_7b", "mistral_nemo_12b", "qwen1_5_0_5b"]
 
 
 def _module(arch: str):
@@ -101,7 +103,7 @@ def _module(arch: str):
     if name not in ARCH_IDS:
         raise ValueError(f"architecture {arch!r} is not ported (ported: "
                          f"{ARCH_IDS}; the rest need block kinds of ROADMAP "
-                         f"queue 1 item 7)")
+                         f"queue 1)")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

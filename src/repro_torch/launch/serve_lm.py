@@ -13,8 +13,11 @@ readback.
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --full-config \
         --arch mistral_nemo_12b          # on the card
 
-On the card the flash kernel takes head dims 64, 128 and 256; the smoke
-configs' 16 raises there.
+Any registered decoder serves (``configs.base.ARCH_IDS``: dense or
+mixture-of-experts blocks, rmsnorm or layernorm).  On the card a prefill's
+attention runs the flash kernel at head dims 64, 128 and 256, and the
+plain version at any other (the smoke configs' 16), a route by shape, as
+the reference's.
 """
 from __future__ import annotations
 

@@ -3,7 +3,8 @@
 Counterpart of ``repro.models.attention``.  Full-sequence attention
 (``apply_attention``, and ``prefill_attention`` over the prompt) goes
 through the one flash attention op (``kernels/flash_attention``): on a
-CUDA tensor the hand-written kernel, on the CPU its plain version.  The
+CUDA tensor the hand-written kernel where it takes the head dim (64, 128,
+256) and the plain version elsewhere, on the CPU the plain version.  The
 reference's blockwise XLA path computes the same contraction; here the
 ragged tail is masked in the kernel instead of padded.  One-token decode
 contracts the query against the cache with plain tensor ops, as the

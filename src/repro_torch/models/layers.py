@@ -36,8 +36,18 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float())
 
 
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` with a float32 result (``preferred_element_type=
+    f32``).  bfloat16 operands on the card go to one product with a
+    float32 output (``out_dtype``), so no widened copy of the weights is
+    made; elsewhere the operands are widened first, the same arithmetic."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 # ---------------------------------------------------------------------------
-# Norm
+# Norms
 # ---------------------------------------------------------------------------
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, *, eps: float = 1e-6
@@ -48,6 +58,18 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, *, eps: float = 1e-6
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + scale.float())).to(dt)
+
+
+def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor, *,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with the (1 + scale) parameterization and a bias (both
+    init 0), computed in float32 and cast back."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float()) + bias.float()).to(dt)
 
 
 # ---------------------------------------------------------------------------

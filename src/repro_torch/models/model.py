@@ -1,13 +1,20 @@
 """Model facade: init / loss / prefill / decode_step / init_caches over the
 decoder-only configs, with the reference facade's names.
 
+The blocks that run are ``attn``, ``lattn`` and ``moe`` (GQA attention
+with a dense MLP, a local window, or a mixture of experts), under
+rmsnorm or layernorm; ``rwkv`` and ``rec`` blocks raise
+``NotImplementedError``.
+
 ``params`` is the :class:`~repro_torch.models.transformer.Transformer`
 holding the weights on the model's device.  The model runs on the CUDA
 device unless the caller passes another ``device`` (the tests pass
 ``"cpu"``); without CUDA, ``Model(cfg)`` raises instead of falling back.
 ``plain=True`` selects the plain attention version on the card (the
 on-card comparison's reference run); the default runs the flash kernel
-on CUDA tensors.  Encoder-decoder configs are still to be ported.
+on CUDA tensors whose head dim it takes (64, 128, 256) and the plain
+version at other head dims.  Encoder-decoder configs are still to be
+ported.
 """
 from __future__ import annotations
 
@@ -35,7 +42,7 @@ class Model:
         if cfg.is_encdec:
             raise NotImplementedError(
                 "encoder-decoder models are not ported yet (ROADMAP.md "
-                "queue 1 item 7)")
+                "queue 1)")
         transformer.check_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)

@@ -1,13 +1,16 @@
 """Decoder-only LM assembly: blocks, layer loop, loss, prefill/decode.
 
-Counterpart of ``repro.models.transformer`` for the dense attention
-blocks (cfg.block_pattern, cycled over layers):
+Counterpart of ``repro.models.transformer`` for the attention blocks
+(cfg.block_pattern, cycled over layers), under either norm (rmsnorm or
+layernorm, ``cfg.norm_type``):
 
   attn  — GQA attention + dense MLP
   lattn — local-window attention + MLP
+  moe   — GQA attention + mixture-of-experts (and a shared expert when
+          ``cfg.moe_shared_expert``)
 
-``moe``, ``rwkv`` and ``rec`` blocks are still to be ported (ROADMAP.md,
-queue 1 item 7) and raise ``NotImplementedError``.
+``rwkv`` and ``rec`` blocks are still to be ported (ROADMAP.md queue 1)
+and raise ``NotImplementedError``.
 
 Parameters are ``nn.Module`` trees that mirror the reference's parameter
 tree name for name, so a state-dict key is the reference's path with the
@@ -22,18 +25,19 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe as moe_lib
 
-BLOCK_KINDS = ("attn", "lattn")
-_UNPORTED_KINDS = ("moe", "rwkv", "rec")
+BLOCK_KINDS = ("attn", "lattn", "moe")
+_UNPORTED_KINDS = ("rwkv", "rec")
+NORM_TYPES = ("rmsnorm", "layernorm")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check_kind(kind: str) -> None:
     if kind in _UNPORTED_KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP.md queue 1 "
-            f"item 7: moe, rwkv6 and rglru blocks)")
+            f"block kind {kind!r} is not ported yet (ROADMAP.md queue 1: "
+            f"the rwkv6 and rglru blocks)")
     if kind not in BLOCK_KINDS:
         raise ValueError(kind)
 
@@ -47,21 +51,33 @@ def attn_spec(cfg: ModelConfig, *, local: bool = False) -> attention.AttnSpec:
         window=cfg.local_window if local else None)
 
 
+def moe_spec(cfg: ModelConfig) -> moe_lib.MoESpec:
+    return moe_lib.MoESpec(
+        d_model=cfg.d_model, d_ff=cfg.d_ff, num_experts=cfg.num_experts,
+        top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+        router_type=cfg.router_type)
+
+
 def check_config(cfg: ModelConfig) -> None:
     """Raise for what the port does not run yet."""
     for kind in set(cfg.block_pattern):
         check_kind(kind)
-    if cfg.norm_type != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {cfg.norm_type!r} is not ported yet (the dense decoders "
-            f"use rmsnorm; ROADMAP.md queue 1 item 7)")
+    if cfg.norm_type not in NORM_TYPES:
+        raise ValueError(cfg.norm_type)
 
 
 def _norm_shapes(cfg: ModelConfig, prefix: str) -> dict:
-    return {f"{prefix}.scale": (cfg.d_model,)}
+    shapes = {f"{prefix}.scale": (cfg.d_model,)}
+    if cfg.norm_type == "layernorm":
+        shapes[f"{prefix}.bias"] = (cfg.d_model,)
+    return shapes
 
 
-def norm(p, x: torch.Tensor) -> torch.Tensor:
+def norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """The config's norm: rmsnorm (``scale``) or layernorm (``scale``,
+    ``bias``)."""
+    if cfg.norm_type == "layernorm":
+        return layers.layernorm(p["scale"], p["bias"], x)
     return layers.rmsnorm(p["scale"], x)
 
 
@@ -73,10 +89,23 @@ def block_shapes(cfg: ModelConfig, kind: str) -> dict:
     shapes.update({f"attn.{k}": v
                    for k, v in attention.attention_shapes(spec).items()})
     shapes.update(_norm_shapes(cfg, "norm2"))
-    shapes.update({f"mlp.{k}": v for k, v in
-                   layers.mlp_shapes(cfg.d_model, cfg.d_ff,
-                                     cfg.mlp_type).items()})
+    mlp = layers.mlp_shapes(cfg.d_model, cfg.d_ff, cfg.mlp_type)
+    if kind == "moe":
+        shapes.update({f"moe.{k}": v for k, v in
+                       moe_lib.moe_shapes(moe_spec(cfg)).items()})
+        if cfg.moe_shared_expert:
+            shapes.update({f"shared.{k}": v for k, v in mlp.items()})
+    else:
+        shapes.update({f"mlp.{k}": v for k, v in mlp.items()})
     return shapes
+
+
+def leaf_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
+    """A parameter's dtype: the config's, but float32 for MoE routers in
+    every config (the reference's ``init_moe``)."""
+    if name.endswith(".moe.router"):
+        return torch.float32
+    return DTYPES[cfg.dtype]
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
@@ -120,8 +149,8 @@ def _unflatten(state: dict) -> dict:
 
 
 class Block(ParamTree):
-    """One attn / lattn layer: pre-norm attention, then a pre-norm MLP,
-    each added to the residual stream."""
+    """One attn / lattn / moe layer: pre-norm attention, then a pre-norm
+    MLP (or mixture of experts), each added to the residual stream."""
 
     def __init__(self, cfg: ModelConfig, kind: str, tree: dict):
         super().__init__(tree)
@@ -131,8 +160,10 @@ class Block(ParamTree):
     def forward(self, x, *, cache=None, decode: bool = False,
                 plain: bool = False):
         """Full sequence (cache None), prefill (cache given) or one-token
-        decode.  Returns (x, cache)."""
-        h = norm(self.norm1, x)
+        decode.  Returns (x, aux, cache): ``aux`` is the router's
+        load-balance loss of a moe block, None for the others."""
+        cfg = self.cfg
+        h = norm(cfg, self.norm1, x)
         if cache is None:
             a = attention.apply_attention(self.attn, h, spec=self.spec,
                                           plain=plain)
@@ -144,8 +175,13 @@ class Block(ParamTree):
                                                    spec=self.spec,
                                                    plain=plain)
         x = x + a
-        h = norm(self.norm2, x)
-        return x + layers.mlp_apply(self.mlp, h, self.cfg.mlp_type), cache
+        h = norm(cfg, self.norm2, x)
+        if self.kind != "moe":
+            return x + layers.mlp_apply(self.mlp, h, cfg.mlp_type), None, cache
+        m, aux = moe_lib.moe_apply(self.moe, h, moe_spec(cfg), decode=decode)
+        if cfg.moe_shared_expert:
+            m = m + layers.mlp_apply(self.shared, h, cfg.mlp_type)
+        return x + m, aux, cache
 
 
 class Transformer(nn.Module):
@@ -169,17 +205,19 @@ class Transformer(nn.Module):
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device) -> Transformer:
     """Random weights drawn on ``device``: fan-in truncated normals for
-    dense weights, stddev d_model^-0.5 for the embedding, zeros for biases
-    and norm scales (the reference's initializers)."""
-    dt = DTYPES[cfg.dtype]
+    dense weights and MoE routers (float32), stddev d_model^-0.5 for the
+    embedding, zeros for biases and norm scales (the reference's
+    initializers).  As in the reference, the fan-in is a weight's first
+    dim, which for the (E, d, f) expert stacks is the expert count."""
     state = {}
     for name, shape in param_shapes(cfg).items():
         leaf = name.rsplit(".", 1)[-1]
+        dt = leaf_dtype(cfg, name)
         if leaf == "embedding":
             state[name] = layers.dense_init(
                 shape, generator=generator, device=device,
                 scale=cfg.d_model ** -0.5, dtype=dt)
-        elif leaf.startswith("w") or leaf == "lm_head":
+        elif leaf.startswith("w") or leaf in ("lm_head", "router"):
             state[name] = layers.dense_init(shape, generator=generator,
                                             device=device, dtype=dt)
         else:
@@ -190,7 +228,8 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
 def params_from_state(cfg: ModelConfig, state: dict, *,
                       device) -> Transformer:
     """A :class:`Transformer` from a full state dict (names and shapes of
-    :func:`param_shapes`), cast to the config's dtype on ``device``."""
+    :func:`param_shapes`), each leaf cast to :func:`leaf_dtype` on
+    ``device`` (tensors already there in that dtype are shared)."""
     want = param_shapes(cfg)
     got = {k: tuple(v.shape) for k, v in state.items()}
     if got != want:
@@ -200,8 +239,7 @@ def params_from_state(cfg: ModelConfig, state: dict, *,
         raise ValueError(f"state does not fit {cfg.name}: missing "
                          f"{missing[:5]}, unexpected {extra[:5]}, wrong "
                          f"shapes {wrong[:5]}")
-    dt = DTYPES[cfg.dtype]
-    return Transformer(cfg, {k: v.to(device=device, dtype=dt)
+    return Transformer(cfg, {k: v.to(device=device, dtype=leaf_dtype(cfg, k))
                              for k, v in state.items()})
 
 
@@ -211,19 +249,23 @@ def params_from_state(cfg: ModelConfig, state: dict, *,
 
 def backbone(params: Transformer, x: torch.Tensor, *, caches=None,
              decode: bool = False, plain: bool = False):
-    """Run all blocks. Returns (x, caches).  The dense blocks have no
-    auxiliary loss (the reference's ``aux`` is the MoE router's)."""
+    """Run all blocks.  Returns (x, aux_total, caches): the MoE routers'
+    load-balance losses summed over layers (float32; 0 for dense
+    stacks)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, block in enumerate(params.blocks):
-        x, cache = block(x, cache=None if caches is None else caches[i],
-                         decode=decode, plain=plain)
+        x, aux, cache = block(x, cache=None if caches is None else caches[i],
+                              decode=decode, plain=plain)
+        if aux is not None:
+            aux_total = aux_total + aux
         if caches is not None:
             caches[i] = cache
-    return x, caches
+    return x, aux_total, caches
 
 
 def logits_from_hidden(params: Transformer, x: torch.Tensor) -> torch.Tensor:
     cfg = params.cfg
-    h = norm(params.final_norm, x)
+    h = norm(cfg, params.final_norm, x)
     logits = layers.unembed(params.embed["embedding"], h,
                             head=params.lm_head)           # float32
     # Mask padded vocab rows out of the softmax.
@@ -242,17 +284,18 @@ def embed_tokens(params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(params: Transformer, batch: dict, *,
             plain: bool = False):
-    """batch: dict(inputs (B,S) int, targets (B,S) int, mask (B,S))."""
+    """batch: dict(inputs (B,S) int, targets (B,S) int, mask (B,S)).
+    Returns (ce + aux, {"ce", "aux"})."""
     cfg = params.cfg
     x = embed_tokens(params, batch["inputs"])
-    x, _ = backbone(params, x, plain=plain)
-    h = norm(params.final_norm, x)
+    x, aux, _ = backbone(params, x, plain=plain)
+    h = norm(cfg, params.final_norm, x)
     w = params.lm_head
     if w is None:
         w = params.embed["embedding"].T
     ce = layers.chunked_softmax_xent(h, w, batch["targets"], batch["mask"],
                                      valid_vocab=cfg.vocab_size)
-    return ce, {"ce": ce}
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -270,7 +313,7 @@ def prefill(params: Transformer, tokens: torch.Tensor, *, max_len: int,
     caches = init_caches(params.cfg, tokens.shape[0], max_len,
                          device=tokens.device)
     x = embed_tokens(params, tokens)
-    x, caches = backbone(params, x, caches=caches, plain=plain)
+    x, _, caches = backbone(params, x, caches=caches, plain=plain)
     return logits_from_hidden(params, x[:, -1:, :]), caches
 
 
@@ -279,5 +322,5 @@ def decode_step(params: Transformer, token: torch.Tensor, caches: list):
     """token: (B, 1) int. Returns (logits (B, 1, V), caches updated in
     place)."""
     x = embed_tokens(params, token)
-    x, caches = backbone(params, x, caches=caches, decode=True)
+    x, _, caches = backbone(params, x, caches=caches, decode=True)
     return logits_from_hidden(params, x), caches

@@ -696,7 +696,7 @@ def test_roofline_terms_keep_the_reference_form():
     assert got["bottleneck"] == "memory_s"
 
 
-@pytest.mark.parametrize("arch", ["mistral_nemo_12b", "qwen1_5_0_5b"])
+@pytest.mark.parametrize("arch", tbase.ARCH_IDS)
 def test_lm_counts_match_the_reference(arch):
     tcfg, jcfg = tbase.get_config(arch), jbase.get_config(arch)
     assert analysis.count_params(tcfg, active=True) == \

@@ -425,6 +425,78 @@ def test_flash_attention_kernel_matches_plain_version(dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_op_routes_other_head_dims_to_plain_version(hd, dtype):
+    """On the card the op sends head dims the kernel does not take to the
+    plain version, a route by shape that launches nothing; the kernel
+    itself still refuses them when called directly."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    g = torch.Generator(device="cuda").manual_seed(hd)
+    q, k, v = (torch.randn(2, n, 70, hd, device="cuda", generator=g)
+               .to(dtype) for n in (8, 2, 2))
+    kfa.LIBRARY.launches = 0
+    got = fa_ops.flash_attention(q, k, v, True, None)
+    assert kfa.LIBRARY.launches == 0 and not fa_ops.kernel_route(q)
+    assert torch.equal(got, rfa.attention(q, k, v, causal=True))
+    with pytest.raises(ValueError, match="head dims"):
+        kfa.flash_attention_fwd(q, k, v)
+    assert kfa.LIBRARY.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(40, 8), (48, 8)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_kernel_at_moe_group_ratios(heads, dtype, tol):
+    """GQA 40/8 (llama4 scout) and 48/8 (dbrx), group ratios 5 and 6, at
+    hd 128 on (B, S, H, hd) views as the model passes them, a ragged
+    length and a window included."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, kv = heads
+    g = torch.Generator(device="cuda").manual_seed(h)
+    for s, window in ((256, None), (300, None), (200, 70)):
+        q, k, v = (torch.randn(2, s, n, 128, device="cuda", generator=g)
+                   .to(dtype).transpose(1, 2) for n in (h, kv, kv))
+        kfa.LIBRARY.launches = 0
+        got = kfa.flash_attention_fwd(q, k, v, causal=True, window=window)
+        assert kfa.LIBRARY.launches == 1
+        want = rfa.attention(q, k, v, causal=True, window=window)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama4_scout_17b_a16e", "dbrx_132b"])
+def test_smoke_moe_serve_on_card_matches_cpu_run(arch):
+    """The MoE smoke configs (hd 16) served on the card with the devices
+    left at their defaults: attention takes the plain route (no flash
+    launch), and the greedy tokens and prefill logits equal a host run of
+    the same float32 weights."""
+    _need_cuda()
+    cfg = get_smoke_config(arch)
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    state = {k: t.detach() for k, t in params.state_dict().items()}
+    gpu_params = Model(cfg).load(state)
+    assert gpu_params.blocks[0].moe["router"].is_cuda
+    kw = dict(batch=2, prompt_len=40, gen_len=8, max_len=64, seed=1,
+              verbose=False)
+    kfa.LIBRARY.launches = 0
+    got, _ = serve_lm.serve(arch, params=gpu_params, **kw)
+    assert kfa.LIBRARY.launches == 0
+    want, _ = serve_lm.serve(arch, device="cpu", params=params, **kw)
+    np.testing.assert_array_equal(got, want)
+    tokens = torch.from_numpy(serve_lm.make_prompts(cfg.vocab_size, 2, 40,
+                                                    1)).long()
+    lg_gpu, _ = transformer.prefill(gpu_params, tokens.cuda(), max_len=64)
+    lg_cpu, _ = transformer.prefill(params, tokens, max_len=64)
+    torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
 def test_smoke_serve_on_card_matches_cpu_run():
     """The same float32 weights (smoke mistral, head_dim 64 so the kernel
     takes it) on the card and on the host: prefill logits within 1e-4,

@@ -9,6 +9,8 @@ scores, probabilities rounded to bfloat16 at another point of the sum).
 Ragged lengths, which the Pallas kernel does not tile, are held to the
 reference's plain version; gradients to its ``custom_vjp`` at 2e-4.
 """
+import types
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -18,6 +20,7 @@ import torch
 from repro.kernels.flash_attention import kernel as jkernel
 from repro.kernels.flash_attention import ops as jops
 from repro.kernels.flash_attention import ref as jref
+from repro.models import attention as jattention
 from repro_torch.kernels.flash_attention import kernel, ops, ref
 
 CASES = [
@@ -128,6 +131,32 @@ def test_kernel_wrapper_takes_only_cuda_tensors():
     _, (q, k, v) = _mk(CASES[0], "float32")
     with pytest.raises(ValueError, match="CUDA"):
         kernel.flash_attention_fwd(q, k, v)
+    assert kernel.LIBRARY.launches == 0
+
+
+@pytest.mark.parametrize("hd", [16, 96])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_head_dims_the_kernel_does_not_take_route_to_plain(hd, dtype):
+    """The op's route is decided by shape, as the reference's
+    ``_flash_kernel_ok``: a CUDA tensor of head dim 64, 128 or 256 goes to
+    the kernel, any other head dim to the plain version, and a CPU tensor
+    always to the plain version.  On the host the op at hd 16 and 96 is
+    the plain version bitwise and holds to the reference's blockwise XLA
+    path; nothing launches."""
+    case = (2, 4, 2, 40, 40, hd, True, None)
+    (jq, jk, jv), (q, k, v) = _mk(case, dtype, seed=5)
+    tol = DTYPES[dtype][2]
+    got = ops.flash_attention(q, k, v, True, None)
+    assert torch.equal(got, ref.attention(q, k, v, causal=True))
+    want = jattention.blockwise_attention(
+        *(t.transpose(0, 2, 1, 3) for t in (jq, jk, jv)), q_positions=None,
+        kv_positions=None, causal=True, window=None, q_block=16,
+        kv_block=16).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+    assert not ops.kernel_route(q)
+    for d in (16, 32, 96, 64, 128, 256):
+        card = types.SimpleNamespace(is_cuda=True, shape=(1, 4, 8, d))
+        assert ops.kernel_route(card) is (d in kernel.HEAD_DIMS)
     assert kernel.LIBRARY.launches == 0
 
 

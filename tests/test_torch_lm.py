@@ -5,9 +5,11 @@ Weights come from the reference's init (``jax.random.PRNGKey``), go
 through numpy and ``convert.params_from_jax`` into the port, and both
 packages run the same seeded tokens on the CPU.  The smoke configs are
 float32, so the two are held at float32 tolerances: 1e-4 absolute and
-relative on logits and the loss (two layers of float32 matmuls, softmax
-and RoPE summed in other orders), 1e-5 on cache contents (one
-projection and RoPE).  Greedy tokens must be equal.
+relative on logits, the loss and the MoE routers' aux loss (two layers
+of float32 matmuls, softmax and RoPE summed in other orders), 1e-5 on
+cache contents (one projection and RoPE).  Greedy tokens must be equal.
+The MoE smoke configs (capacity factor 8) drop no token, so the full
+sequence and teacher-forced decode route alike.
 """
 import dataclasses
 
@@ -31,14 +33,21 @@ from repro_torch.models.model import Model
 TOL = 1e-4
 B, S = 2, 32
 
-# (name, arch, config overrides): the two ported dense decoders, a padded
-# vocabulary and a local-window stack with ring caches.
+# (name, arch, config overrides): the ported decoders (dense; the MoE
+# llama4 with a sigmoid top-1 router and a shared expert; the layernorm
+# MoE dbrx with a softmax top-2 router; gemma's geglu, embedding scale
+# and tied head; chameleon's qk-norm), a padded vocabulary and a
+# local-window stack with ring caches.
 CONFIGS = [
     ("mistral", "mistral_nemo_12b", {}),
     ("qwen", "qwen1_5_0_5b", {}),
     ("qwen_padded_vocab", "qwen1_5_0_5b", {"vocab_size": 500}),
     ("mistral_local", "mistral_nemo_12b",
      {"block_pattern": ("lattn",), "local_window": 6}),
+    ("llama4", "llama4_scout_17b_a16e", {}),
+    ("dbrx", "dbrx_132b", {}),
+    ("gemma", "gemma_7b", {}),
+    ("chameleon", "chameleon_34b", {}),
 ]
 
 
@@ -84,8 +93,8 @@ def test_configs_match_reference():
             jbase.SHAPES[name])
     with pytest.raises(ValueError, match="not ported"):
         tbase.get_config("rwkv6_3b")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Model(jbase.get_smoke_config("llama4_scout_17b_a16e"), device="cpu")
+    with pytest.raises(NotImplementedError, match="rwkv"):
+        Model(jbase.get_smoke_config("rwkv6_3b"), device="cpu")
 
 
 def test_converted_state_has_reference_names_and_shapes(pair):
@@ -108,19 +117,24 @@ def test_full_sequence_logits_and_loss_match(pair, ctx):
              "mask": jnp.ones((B, S), jnp.float32).at[0, -3:].set(0.0)}
     tbatch = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
     with ctx.mesh:
-        h, _, _ = jtr.backbone(params=jparams, x=jtr.embed_tokens(
+        h, jaux, _ = jtr.backbone(params=jparams, x=jtr.embed_tokens(
             jparams, jt, jcfg), cfg=jcfg, ctx=ctx)
         want = jtr.logits_from_hidden(jparams, h, jcfg)
         jloss, jmetrics = jtr.loss_fn(jparams, batch, jcfg, ctx)
     with torch.no_grad():
-        th, _ = transformer.backbone(params,
-                                     transformer.embed_tokens(params, tt))
+        th, aux, _ = transformer.backbone(
+            params, transformer.embed_tokens(params, tt))
         got = transformer.logits_from_hidden(params, th)
         loss, metrics = model.loss_fn(params, tbatch)
     assert got.dtype == torch.float32 and got.shape == want.shape
     _close(got, want)
     _close(loss, jloss)
     _close(metrics["ce"], jmetrics["ce"])
+    _close(aux, jaux)
+    _close(metrics["aux"], jmetrics["aux"])
+    assert aux.dtype == torch.float32
+    if "moe" not in jcfg.block_pattern:
+        assert float(aux) == 0.0 and float(jaux) == 0.0
     if jcfg.padded_vocab != jcfg.vocab_size:
         assert (got[..., jcfg.vocab_size:] == -1e30).all()
 
