@@ -82,12 +82,16 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 14. flash_attention — the flash attention kernel against its plain version
              (``FLASH_CASES``: GQA, MQA, MHA, windows, non-causal, ragged
              Sq != Skv, rows that see no key, hd 64/128/256, the edges of
-             the kernel's tiles) in float32 and bfloat16 at ``FLASH_TOL``,
-             then at the main path's shapes (``FLASH_MAIN_SHAPES``, strided
-             views as the model passes them); the counts of wgmma and TMA
-             instructions in its SASS (cuobjdump); timed at the LM
-             prefill's shape beside its bound, in turns with
-             ``scaled_dot_product_attention``;
+             the kernel's tiles; lm_families' shapes: whisper's ragged
+             non-causal 1500 keys and 224 x 1500 cross-attention,
+             recurrentgemma's MQA 10/1 at hd 256 with a 2048 window) in
+             float32 and bfloat16 at ``FLASH_TOL``, then at the main
+             path's shapes (``FLASH_MAIN_SHAPES``, ``FLASH_FAMILY_CALLS``:
+             strided views as the model passes them, in the dtype each
+             runs in); the counts of wgmma and TMA instructions in its
+             SASS (cuobjdump); timed at the LM prefill's shape and at
+             whisper's float32 encoder call beside their bounds, in turns
+             with ``scaled_dot_product_attention``;
 15. lm_serve — ``serve`` of mistral_nemo_12b at full width and depth (random
              weights drawn on the card from seed 0): 4 prompts of 1024
              tokens, 32 greedy tokens; one flash launch per layer; the
@@ -119,6 +123,25 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
              at 1.25; a prefill and a decode step under ``torch.profiler``
              (GEMM, flash, sort/scatter/gather, the rest, idle share);
              ``loss_fn`` at 2 x 2048 with its aux, finite;
+16c. lm_families — whisper_small, recurrentgemma_2b, rwkv6_3b and
+             phi3_mini_3_8b at their published width and depth
+             (``LM_FAMILIES``; bfloat16 weights drawn on the card from
+             seed 0): ``serve`` with 36, 8, 0 and 0 flash launches per
+             prefill and nothing else (whisper's float32 frames: its
+             encoder and cross-attention calls run the kernel's float32
+             path); the prefill's flash calls of ``FAMILY_HELD_CALLS``
+             against the plain version; the prompt's logits (every 64th
+             position and the prefill's last) of the kernel route against
+             the plain route, with the hidden-tile control
+             (``FAMILY_CONTROL_KEYS``); teacher-forced ``decode_step``
+             against one full-sequence forward in ``FAMILY_LIMITS``'
+             dtype (rwkv6 and recurrentgemma on the same weights widened
+             to float32; read in bfloat16 too), whose control must fail
+             (rwkv6: the WKV state zeroed at ``WKV_CONTROL_AT``; the
+             others: a hidden tile); ``wkv_chunked`` against ``wkv_scan``
+             on one layer's inputs at ``WKV_TOL``, the recurrences timed
+             alone; a prefill and a decode step under ``torch.profiler``
+             (the recurrences' non-GEMM work as its own kind);
 17. pipeline — ``run_distributed`` (the paper's Variant 1-3 job) over a
              survey of astro frames: ids 0-15 at sizes cycling 1024, 2048,
              4096, 2048 and id 16 at ``PIPELINE_TILED``² routed tiled by
@@ -189,6 +212,7 @@ checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -284,7 +308,15 @@ FLASH_CASES = ((1, 1, 1, 128, 128, 64, True, None),
                (1, 4, 2, 256, 256, 64, True, 100),
                (1, 4, 1, 129, 129, 64, True, None),
                (1, 4, 1, 129, 129, 256, True, None),
-               (1, 4, 2, 256, 256, 256, True, 70))
+               (1, 4, 2, 256, 256, 256, True, 70),
+               # lm_families at batch 1: whisper's encoder (ragged 1500,
+               # non-causal), cross-attention (224 queries over 1500
+               # keys) and decoder self-attention; recurrentgemma's local
+               # attention (MQA 10/1, hd 256, window 2048, 3072 tokens).
+               (1, 12, 12, 1500, 1500, 64, False, None),
+               (1, 12, 12, 224, 1500, 64, False, None),
+               (1, 12, 12, 224, 224, 64, True, None),
+               (1, 10, 1, 3072, 3072, 256, True, 2048))
 # The working type's tolerance (atol = rtol), as the reference's kernel
 # test states it; float32 compares without TF32.
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -296,6 +328,19 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_SHAPE = (4, 32, 8, 1024, 128)
 FLASH_MAIN_SHAPES = (FLASH_SHAPE, (2, 32, 8, 2048, 128),
                      (4, 40, 8, 1024, 128), (4, 48, 8, 1024, 128))
+# lm_families' own calls at its serve batch, on (B, S, heads, hd) views as
+# the model passes them, in the dtype each runs in (dtype, B, H, KV, Sq,
+# Skv, hd, causal, window): whisper's encoder and cross-attention in
+# float32 (the frames are float32), its first decoder self-attention in
+# bfloat16 and the later ones in float32; recurrentgemma's bfloat16.
+FLASH_FAMILY_CALLS = (("float32", 4, 12, 12, 1500, 1500, 64, False, None),
+                      ("float32", 4, 12, 12, 224, 1500, 64, False, None),
+                      ("bfloat16", 4, 12, 12, 224, 224, 64, True, None),
+                      ("float32", 4, 12, 12, 224, 224, 64, True, None),
+                      ("bfloat16", 4, 10, 1, 3072, 3072, 256, True, 2048))
+# The whisper encoder's call, timed beside its bound and SDPA: (B, H, S,
+# hd), float32, non-causal.
+FLASH_ENCODER_SHAPE = (4, 12, 1500, 64)
 # Head dims the kernel does not take (B, H, KV, S, hd): the op routes them
 # to the plain version by shape (phi3's 96, the smoke configs' 16) and
 # launches nothing; the kernel called directly refuses them.
@@ -321,6 +366,61 @@ MOE_DEPTH = {"llama4_scout_17b_a16e": 12, "dbrx_132b": 8}
 # The prompt positions whose logits lm_moe holds kernel route against
 # plain route: every 64th token of each prompt, the last included.
 MOE_POSITIONS = tuple(range(63, LM_SERVE["prompt_len"], 64))
+# lm_families: the four architectures of the RWKV-6, RG-LRU, encoder-decoder
+# and head-dim-96 paths at their published width and depth (bfloat16,
+# random weights drawn on the card from seed 0): each one's serve shape and
+# the flash launches of one prefill (whisper: 12 encoder, 12 decoder self-
+# and 12 cross-attention calls; recurrentgemma: its 8 local-attention
+# layers, the prompt longer than the 2048 window so the ring caches wrap;
+# rwkv6 has no attention; phi3's head dim 96 takes the plain route).
+LM_FAMILIES = {
+    "whisper_small": (dict(batch=4, prompt_len=224, gen_len=32,
+                           max_len=256), 36),
+    "recurrentgemma_2b": (dict(batch=4, prompt_len=3072, gen_len=32,
+                               max_len=3104), 8),
+    "rwkv6_3b": (dict(batch=4, prompt_len=1024, gen_len=32, max_len=1056),
+                 0),
+    "phi3_mini_3_8b": (dict(batch=4, prompt_len=1024, gen_len=32,
+                            max_len=2048), 0),
+}
+# The prefill's flash calls held to the plain version, by call index:
+# whisper's encoder's last and its last cross-attention.
+FAMILY_HELD_CALLS = {"whisper_small": {"encoder_last": 11, "cross_last": 35},
+                     "recurrentgemma_2b": {"last": -1}}
+# The 64-key tile the hidden-tile control hides, (for the prompt's logits,
+# for teacher-forced decode), where it is not CONTROL_KEYS: whisper's
+# prompt (224) ends before that tile, so its control hides the third
+# (seen by the decoder's later prompt queries and by every encoder and
+# cross-attention query); recurrentgemma's decode rows see only the last
+# 2048 keys, so their control hides a tile inside that window.
+FAMILY_CONTROL_KEYS = {
+    "whisper_small": (slice(128, 192), slice(128, 192)),
+    "recurrentgemma_2b": (CONTROL_KEYS, slice(2560, 2624))}
+# The logit limits (atol, rtol) of each family's checks: the prompt's
+# logits, kernel route against plain route; teacher-forced decode against
+# the full sequence, in the dtype named (the served bfloat16, or the same
+# weights widened to float32).  Each limit lies between the sound reading
+# and its control's (PERF.md gives both).  Two checks are held in float32:
+# rwkv6's bfloat16 stream turns the two WKV forms' float32 rounding into
+# logit differences of 12 times LOGIT_ATOL (its full forward with the scan
+# form reads the same against the chunked form), and in recurrentgemma's
+# bfloat16 stream a hidden tile moves the decode rows' logits no more than
+# rounding does (both are read in bfloat16 as well).
+FAMILY_LIMITS = {
+    "whisper_small": {"prompt": (LOGIT_ATOL, LOGIT_RTOL),
+                      "decode": ("bfloat16", LOGIT_ATOL, LOGIT_RTOL)},
+    "recurrentgemma_2b": {"prompt": (LOGIT_ATOL, LOGIT_RTOL),
+                          "decode": ("float32", 1e-3, 1e-3)},
+    "rwkv6_3b": {"decode": ("float32", LOGIT_ATOL, LOGIT_RTOL)},
+    "phi3_mini_3_8b": {"decode": ("bfloat16", LOGIT_ATOL, LOGIT_RTOL)},
+}
+# rwkv6's control: every layer's WKV state zeroed at this token (a chunk
+# boundary: the prompt's end) in the full-sequence forward.
+WKV_CONTROL_AT = 1024
+# wkv_chunked against wkv_scan on one layer's inputs, widened to float32,
+# relative to the largest output element, as tests/test_torch_recurrent.py
+# holds them (the two forms order their sums differently).
+WKV_TOL = 1e-5
 # The design of each kernel.
 DESIGN = {"ph_phase_a": "one launch per strip: a 16-byte-vector stencil, "
                         "16-bit pointers and an escape table in shared "
@@ -756,6 +856,21 @@ def phase_flash_attention(dev, rng, err) -> dict:
                                  f"over tolerance {tol}")
         del got, want
     errs["bfloat16"] = max(errs["bfloat16"], *main_errs)
+    family_errs = []
+    for name, b, h, kv, sq, skv, hd, causal, window in FLASH_FAMILY_CALLS:
+        q, k, v = (torch.randn(b, s, n, hd, device=dev).to(dtypes[name])
+                   .transpose(1, 2) for s, n in ((sq, h), (skv, kv),
+                                                 (skv, kv)))
+        got = kfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        want = rfa.attention(q, k, v, causal=causal, window=window)
+        family_errs.append(max_abs_diff(got, want))
+        tol = FLASH_TOL[name]
+        errs[name] = max(errs[name], family_errs[-1])
+        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+            raise AssertionError(f"flash kernel != plain at lm_families' "
+                                 f"call {(name, b, h, kv, sq, skv, hd)}: max "
+                                 f"|diff| {family_errs[-1]} over {tol}")
+        del got, want
     err["flash_attention"] = max(errs.values())
 
     plain_route = []
@@ -800,10 +915,13 @@ def phase_flash_attention(dev, rng, err) -> dict:
     bound_ms = max(ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
     bound_by = "operations" if ops / BF16_OPS_PER_S >= \
         nbytes / HBM_BYTES_PER_S else "bytes"
+    encoder = flash_encoder_timing(dev)
     emit("flash_attention", cases=len(FLASH_CASES) * len(dtypes),
          tolerance=FLASH_TOL, max_abs_err=errs,
          main_shapes=[list(t) for t in FLASH_MAIN_SHAPES],
-         main_shape_max_abs_err=main_errs, plain_route=plain_route,
+         main_shape_max_abs_err=main_errs,
+         family_calls=[list(c) for c in FLASH_FAMILY_CALLS],
+         family_max_abs_err=family_errs, plain_route=plain_route,
          timed_shape=list(
              FLASH_SHAPE), timed_dtype="bfloat16", causal=True,
          kernel_ms=ms, device_ms=timed["device_ms"], plain_ms=plain_ms,
@@ -811,10 +929,46 @@ def phase_flash_attention(dev, rng, err) -> dict:
          library_device_ms=timed["library_device_ms"],
          turns_ms=timed["turns_ms"], turns_device_ms=timed["turns_device_ms"],
          flop=ops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
-         bound_share=bound_ms / timed["device_ms"], sass=sass)
+         bound_share=bound_ms / timed["device_ms"], sass=sass,
+         whisper_encoder=encoder)
     return {"ms": ms, "device_ms": timed["device_ms"], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-            "library_device_ms": timed["library_device_ms"], "sass": sass}
+            "library_device_ms": timed["library_device_ms"], "sass": sass,
+            "whisper_encoder": {k: encoder[k] for k in (
+                "shape", "dtype", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_device_ms")}}
+
+
+def flash_encoder_timing(dev) -> dict:
+    """The flash kernel at whisper's encoder call (``FLASH_ENCODER_SHAPE``,
+    float32, non-causal, (B, S, H, hd) views), in turns with
+    ``scaled_dot_product_attention`` on the same inputs, beside its bound:
+    the two products over every (q, k) pair at the float32 rate outside
+    the tensor cores (the kernel's float32 path is scalar FMAs), and q, k,
+    v read once and o written once."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as kfa
+    from repro_torch.kernels.flash_attention import ref as rfa
+
+    b, h, s, hd = FLASH_ENCODER_SHAPE
+    q, k, v = (torch.randn(b, s, h, hd, device=dev).transpose(1, 2)
+               for _ in range(3))
+    timed = in_turns(
+        lambda: kfa.flash_attention_fwd(q, k, v, causal=False),
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+    plain_ms = cuda_ms(lambda: rfa.attention(q, k, v, causal=False), reps=3)
+    ops = 4 * b * h * hd * s * s
+    nbytes = 4 * b * h * s * hd * 4
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"shape": [b, h, s, hd], "dtype": "float32", "causal": False,
+            "ms": timed["ms"], "device_ms": timed["device_ms"],
+            "plain_ms": plain_ms, "library_ms": timed["library_ms"],
+            "library_device_ms": timed["library_device_ms"],
+            "turns_device_ms": timed["turns_device_ms"], "flop": ops,
+            "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_share": max(ops_ms, bytes_ms) / timed["device_ms"]}
 
 
 def same_diagram(a, b) -> bool:
@@ -2091,11 +2245,32 @@ def phase_autotune(dev, ref, reset_counts, read_counts, err) -> dict:
             "tuned_launches": tuned_launches}
 
 
+# The profiler range that ``recurrence_ranges`` opens around the
+# recurrences, so that ``device_profile`` can attribute their device work.
+RECURRENCE_RANGE = "lm_families.recurrence"
+
+
+def _is_gemm(name: str) -> bool:
+    return any(w in name.lower() for w in ("gemm", "xmma", "nvjet",
+                                           "cutlass"))
+
+
+def _in_recurrence(event) -> bool:
+    while event is not None:
+        if event.name == RECURRENCE_RANGE:
+            return True
+        event = event.cpu_parent
+    return False
+
+
 def device_profile(fn) -> dict:
     """One run of ``fn`` under ``torch.profiler``: its host wall ms (with
     the profiler's own cost), the device time of its kernels and copies
     summed (one stream, so they do not overlap), the idle share that
-    leaves, device ms by kind and the five longest kernels."""
+    leaves, device ms by kind and the five longest kernels.  Kernels
+    launched by an op inside a ``RECURRENCE_RANGE`` (see
+    ``recurrence_ranges``) count as "recurrence" unless they are GEMMs
+    (the WKV's batched products), with their launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2108,25 +2283,38 @@ def device_profile(fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
-    launches = 0
+    in_rec: dict = {}
+    launches = rec_launches = 0
     for event in prof.events():
         if event.device_type == DeviceType.CUDA:
+            if event.name == RECURRENCE_RANGE or getattr(
+                    event, "is_user_annotation", False):
+                continue                # a range's span, not a kernel
             launches += 1
             by_name[event.name] = by_name.get(event.name, 0.0) \
                 + event.time_range.elapsed_us() / 1e3
+        elif event.kernels and _in_recurrence(event):
+            for kernel in event.kernels:
+                if not _is_gemm(kernel.name):
+                    rec_launches += 1
+                    in_rec[kernel.name] = in_rec.get(kernel.name, 0.0) \
+                        + kernel.duration / 1e3
     if not by_name:                     # the profiler saw no device work
         return {"wall_ms": wall_ms, "device_busy_ms": None}
     # "copy": dtype casts and copies (the float32 widening of the head and
     # of the KV cache among them); "sort_scatter_gather": sorts,
     # searchsorted and indexing (the MoE dispatch and combine, the
     # embedding lookup).
-    kinds = {"flash_attention": 0.0, "gemm": 0.0, "sort_scatter_gather": 0.0,
-             "copy": 0.0, "other": 0.0}
+    kinds = {"flash_attention": 0.0, "gemm": 0.0, "recurrence": 0.0,
+             "sort_scatter_gather": 0.0, "copy": 0.0, "other": 0.0}
     for name, ms in by_name.items():
         low = name.lower()
+        rec = min(ms, in_rec.get(name, 0.0))
+        kinds["recurrence"] += rec
+        ms -= rec
         if "flash_fwd" in low:
             kinds["flash_attention"] += ms
-        elif any(w in low for w in ("gemm", "xmma", "nvjet", "cutlass")):
+        elif _is_gemm(name):
             kinds["gemm"] += ms
         elif any(w in low for w in ("sort", "scatter", "gather", "index",
                                     "searchsorted")):
@@ -2139,14 +2327,16 @@ def device_profile(fn) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / wall_ms, "device_events": launches,
+            "recurrence_launches": rec_launches,
             "device_ms_by_kind": kinds,
             "top_kernels": [[name[:80], ms] for name, ms in top]}
 
 
-def hidden_tile_attention(q, k, v, *, causal=True, window=None):
-    """The plain version with keys ``CONTROL_KEYS`` hidden from every
-    query: a deliberately wrong attention (a kernel that loses one KV
-    tile), run as the LM phases' control."""
+def hidden_tile_attention(q, k, v, *, causal=True, window=None,
+                          keys=CONTROL_KEYS):
+    """The plain version with ``keys`` (by default ``CONTROL_KEYS``)
+    hidden from every query: a deliberately wrong attention (a kernel
+    that loses one KV tile), run as the LM phases' control."""
     import torch
     from repro_torch.kernels.flash_attention import ref as rfa
     b, h, sq, hd = q.shape
@@ -2154,7 +2344,7 @@ def hidden_tile_attention(q, k, v, *, causal=True, window=None):
     q5 = q.reshape(b, kvh, h // kvh, sq, hd)
     s = torch.einsum("bngqd,bnkd->bngqk", q5.float(), k.float()) * hd ** -0.5
     visible = rfa.mask(sq, skv, causal=causal, window=window, device=q.device)
-    visible[:, CONTROL_KEYS] = False
+    visible[:, keys] = False
     p = torch.softmax(s.masked_fill(~visible, float("-inf")), dim=-1)
     out = torch.einsum("bngqk,bnkd->bngqd", p.to(v.dtype).float(), v.float())
     return out.reshape(b, h, sq, hd).to(q.dtype)
@@ -2176,19 +2366,26 @@ class plain_attention_replaced:
         rfa.attention = self.saved
 
 
-def held_flash_call(label: str, fn):
-    """Run ``fn`` with the flash kernel's wrapper recording its
-    arguments, then launch its last call again and hold it to the plain
-    version element by element at ``FLASH_TOL["bfloat16"]``.  Returns
-    (``fn()``, that call's shapes, strides, options and max |diff|)."""
+def held_flash_calls(label: str, fn, picks=None):
+    """Run ``fn`` with the flash kernel's wrapper recording its calls,
+    then launch the picked ones again (``picks``: name -> call index, -1
+    the last; by default the last) and hold each to the plain version
+    element by element at ``FLASH_TOL`` of its dtype.  Returns (``fn()``,
+    each pick's shapes, strides, dtype, options and max |diff|, the dtype
+    of every call in order)."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as kfa
     from repro_torch.kernels.flash_attention import ref as rfa
 
-    launch, captured = kfa.flash_attention_fwd, {}
+    picks = picks or {"last": -1}
+    wanted = {i for i in picks.values() if i >= 0}
+    launch, kept, dtypes = kfa.flash_attention_fwd, {}, []
 
     def capture(q, k, v, **kw):
-        captured.update(q=q, k=k, v=v, kw=kw)
+        if len(dtypes) in wanted:
+            kept[len(dtypes)] = (q, k, v, kw)
+        kept[-1] = (q, k, v, kw)
+        dtypes.append(str(q.dtype).removeprefix("torch."))
         return launch(q, k, v, **kw)
 
     kfa.flash_attention_fwd = capture
@@ -2196,25 +2393,41 @@ def held_flash_call(label: str, fn):
         out = fn()
     finally:
         kfa.flash_attention_fwd = launch
-    q, k, v, kw = (captured[n] for n in ("q", "k", "v", "kw"))
-    got, want = launch(q, k, v, **kw), rfa.attention(q, k, v, **kw)
-    layer_err, tol = max_abs_diff(got, want), FLASH_TOL["bfloat16"]
-    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
-        raise AssertionError(f"{label}: flash kernel != plain on the last "
-                             f"call: max |diff| {layer_err} over {tol}")
-    return out, {"q": list(q.shape), "q_strides": list(q.stride()),
-                 "k": list(k.shape), **kw, "max_abs_err": layer_err}
+    held = {}
+    for name, index in picks.items():
+        q, k, v, kw = kept[index]
+        dtype = str(q.dtype).removeprefix("torch.")
+        got, want = launch(q, k, v, **kw), rfa.attention(q, k, v, **kw)
+        err, tol = max_abs_diff(got, want), FLASH_TOL[dtype]
+        if not torch.allclose(got.float(), want.float(), atol=tol,
+                              rtol=tol):
+            raise AssertionError(f"{label}: flash kernel != plain on call "
+                                 f"{name} ({index}): max |diff| {err} over "
+                                 f"{tol}")
+        held[name] = {"call": index if index >= 0 else len(dtypes) - 1,
+                      "q": list(q.shape), "q_strides": list(q.stride()),
+                      "k": list(k.shape), "dtype": dtype, **kw,
+                      "max_abs_err": err}
+    return out, held, dtypes
 
 
-def logit_reading(got, want) -> dict:
+def held_flash_call(label: str, fn):
+    """``held_flash_calls`` of the last call: (``fn()``, its reading)."""
+    out, held, _ = held_flash_calls(label, fn)
+    return out, held["last"]
+
+
+def logit_reading(got, want, tol=None) -> dict:
     """max |got - want| and its largest ratio to the logit tolerance
+    ``tol`` = (atol, rtol), by default (``LOGIT_ATOL``, ``LOGIT_RTOL``)
     (``torch.allclose`` passes exactly when the ratio is at most 1)."""
     import torch
     if not bool(torch.isfinite(got).all()) or got.shape != want.shape:
         raise AssertionError(f"non-finite logits or shape "
                              f"{tuple(got.shape)} != {tuple(want.shape)}")
+    atol, rtol = tol or (LOGIT_ATOL, LOGIT_RTOL)
     diff = (got.double() - want.double()).abs()
-    ratio = diff / (LOGIT_ATOL + LOGIT_RTOL * want.double().abs())
+    ratio = diff / (atol + rtol * want.double().abs())
     return {"max_abs": float(diff.max()), "tol_ratio": float(ratio.max())}
 
 
@@ -2600,6 +2813,356 @@ def lm_moe_one(dev, arch: str, depth: int, reset_counts,
          sample_output=stats["sample_output"],
          phase_s=time.perf_counter() - t_phase)
     return launches["flash_attention"]
+
+
+class recurrence_ranges:
+    """Within the block, the recurrences (``rwkv6.wkv_scan``,
+    ``wkv_chunked``; ``rglru.rglru``, ``rglru_step``, ``_causal_conv1d``)
+    run inside ``RECURRENCE_RANGE`` profiler ranges, and each one's last
+    call is recorded: name -> (args, kwargs)."""
+
+    TARGETS = (("rwkv6", ("wkv_scan", "wkv_chunked")),
+               ("rglru", ("rglru", "rglru_step", "_causal_conv1d")))
+
+    def __enter__(self):
+        import importlib
+        self.saved, self.last = [], {}
+        for module, names in self.TARGETS:
+            mod = importlib.import_module(f"repro_torch.models.{module}")
+            for name in names:
+                fn = getattr(mod, name)
+                self.saved.append((mod, name, fn))
+                setattr(mod, name, self._ranged(name, fn))
+        return self.last
+
+    def _ranged(self, name, fn):
+        import torch
+
+        def call(*args, **kw):
+            self.last[name] = (args, kw)
+            with torch.profiler.record_function(RECURRENCE_RANGE):
+                return fn(*args, **kw)
+        return call
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+class wkv_state_zeroed:
+    """Within the block, ``wkv_chunked`` over more than ``at`` tokens
+    starts again from a zero state at token ``at``: a deliberately wrong
+    recurrence (one that loses its state between two chunks), rwkv6's
+    control."""
+
+    def __init__(self, at: int):
+        self.at = at
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import rwkv6
+        fn, at = rwkv6.wkv_chunked, self.at
+        self.saved = fn
+
+        def dropped(r, k, v, w, u, state, **kw):
+            if r.shape[1] <= at:
+                return fn(r, k, v, w, u, state, **kw)
+            head, s1 = fn(r[:, :at], k[:, :at], v[:, :at], w[:, :at], u,
+                          state, **kw)
+            tail, s2 = fn(r[:, at:], k[:, at:], v[:, at:], w[:, at:], u,
+                          torch.zeros_like(s1), **kw)
+            return torch.cat([head, tail], dim=1), s2
+
+        rwkv6.wkv_chunked = dropped
+
+    def __exit__(self, *exc):
+        from repro_torch.models import rwkv6
+        rwkv6.wkv_chunked = self.saved
+
+
+class wkv_forms_swapped:
+    """Within the block, ``wkv_chunked`` computes the scan form."""
+
+    def __enter__(self):
+        from repro_torch.models import rwkv6
+        self.saved = fn = rwkv6.wkv_chunked
+        rwkv6.wkv_chunked = lambda r, k, v, w, u, state, **kw: \
+            rwkv6.wkv_scan(r, k, v, w, u, state)
+
+    def __exit__(self, *exc):
+        from repro_torch.models import rwkv6
+        rwkv6.wkv_chunked = self.saved
+
+
+def recurrence_timings(calls) -> dict:
+    """Device time and launches of one layer's recurrence, on the inputs
+    it had in the prefill: rwkv6's ``wkv_chunked`` (device time; and
+    held to ``wkv_scan`` in float32 at ``WKV_TOL``) and ``wkv_scan`` (one
+    call's time: its token loop enqueues more than a device sleep covers);
+    recurrentgemma's ``rglru`` and its log-depth scan alone."""
+    import torch
+    from repro_torch.models import rglru, rwkv6
+
+    with torch.no_grad():
+        return {**_wkv_timings(calls, rwkv6), **_rglru_timings(calls, rglru)}
+
+
+def _wkv_timings(calls, rwkv6) -> dict:
+    out = {}
+    if "wkv_chunked" in calls:
+        args, kw = calls["wkv_chunked"]
+        r = args[0]
+        wide = [a.float() for a in args[:4]] + list(args[4:])
+        chunked, c_state = rwkv6.wkv_chunked(*wide, **kw)
+        scan, s_state = rwkv6.wkv_scan(*wide)
+        scale = max(1.0, float(scan.abs().max()))
+        err = max_abs_diff(chunked, scan) / scale
+        state_err = max_abs_diff(c_state, s_state) / max(
+            1.0, float(s_state.abs().max()))
+        if not (err <= WKV_TOL and state_err <= WKV_TOL):
+            raise AssertionError(f"wkv_chunked != wkv_scan at "
+                                 f"{tuple(r.shape)}: {err}, state "
+                                 f"{state_err} over {WKV_TOL}")
+        del chunked, scan, c_state, s_state, wide
+        out["wkv"] = {
+            "shape": list(r.shape),
+            "dtype": str(r.dtype).removeprefix("torch."), "chunk":
+            kw.get("chunk", 32), "chunked_vs_scan_rel_err": err,
+            "state_rel_err": state_err, "tolerance": WKV_TOL,
+            "chunked_device_ms": device_ms(
+                lambda: rwkv6.wkv_chunked(*args, **kw), reps=5),
+            "chunked_launches": device_profile(
+                lambda: rwkv6.wkv_chunked(*args, **kw))["device_events"],
+            "scan_ms": cuda_ms(lambda: rwkv6.wkv_scan(*args[:6]), reps=1),
+            "scan_launches": device_profile(
+                lambda: rwkv6.wkv_scan(*args[:6]))["device_events"]}
+    return out
+
+
+def _rglru_timings(calls, rglru) -> dict:
+    out = {}
+    if "rglru" in calls:
+        (p, x, h0), _ = calls["rglru"]
+        a, b = rglru._gated(p, x.float())
+        out["rglru"] = {
+            "shape": list(x.shape),
+            "dtype": str(x.dtype).removeprefix("torch."),
+            "device_ms": device_ms(lambda: rglru.rglru(p, x, h0), reps=5),
+            "launches": device_profile(
+                lambda: rglru.rglru(p, x, h0))["device_events"],
+            "scan_device_ms": device_ms(lambda: rglru.linear_scan(a, b),
+                                        reps=5),
+            "scan_launches": device_profile(
+                lambda: rglru.linear_scan(a, b))["device_events"]}
+    return out
+
+
+def prompt_positions(p: int) -> list:
+    """Every 64th position of a p-token prompt, and its last."""
+    return sorted(set(range(63, p, 64)) | {p - 1})
+
+
+def lm_family_one(dev, arch: str, reset_counts, read_counts) -> dict:
+    """One architecture of ``LM_FAMILIES`` at full width and depth:
+    ``serve`` and its launches, the prefill's flash calls held to the
+    plain version, the prompt's logits of the kernel route against the
+    plain route (where a kernel runs), teacher-forced decode against one
+    full-sequence forward (held in ``FAMILY_LIMITS``' dtype, read in the
+    served one), each with a control that must fail, the recurrences
+    timed alone, profiles.  Returns serve's flash launches and the
+    recurrences' timings."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import encdec, transformer
+    from repro_torch.models.model import Model
+
+    t_phase = time.perf_counter()
+    shape, flash_per_prefill = LM_FAMILIES[arch]
+    limits = FAMILY_LIMITS[arch]
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg)                          # device left at its default
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in params.parameters())
+    reset_counts()
+    gen, stats = serve_lm.serve(arch, smoke=False, params=params,
+                                verbose=False, **shape)
+    launches = read_counts()
+    want = dict.fromkeys(launches, 0) | {"flash_attention": flash_per_prefill}
+    if launches != want:
+        raise AssertionError(f"{arch}: serve launched {launches}, expected "
+                             f"{want}")
+    # Whisper's logits are not masked past the vocabulary (nor are the
+    # reference's), so its greedy tokens may be padding ids.
+    vocab = cfg.padded_vocab if cfg.is_encdec else cfg.vocab_size
+    b, p, max_len = (shape[k] for k in ("batch", "prompt_len", "max_len"))
+    if gen.shape != (b, shape["gen_len"]) or gen.min() < 0 or \
+            gen.max() >= vocab:
+        raise AssertionError(f"{arch}: serve tokens out of range")
+
+    inputs = serve_lm.model_inputs(cfg, b, p, 0, dev)
+    forced = torch.from_numpy(gen[:, :TEACHER_STEPS]).to(dev).long()
+    seq = torch.cat([inputs["tokens"], forced], dim=1)
+    control_keys = FAMILY_CONTROL_KEYS.get(arch, (CONTROL_KEYS,) * 2)
+    prompt_tile, decode_tile = (
+        functools.partial(hidden_tile_attention, keys=keys)
+        for keys in control_keys)
+
+    def prefill(m=model, prm=params):
+        return m.prefill(prm, inputs, max_len=max_len)
+
+    def logits_at(prm, tokens, positions, plain):
+        with torch.no_grad():
+            if prm.cfg.is_encdec:
+                enc = encdec.encode(prm, inputs["frames"], plain=plain)
+                h = encdec.decoder_hidden(prm, enc, tokens, plain=plain)
+                return encdec.logits_from_hidden(prm, h[:, positions])
+            h, _, _ = transformer.backbone(
+                prm, transformer.embed_tokens(prm, tokens), plain=plain)
+            return transformer.logits_from_hidden(prm, h[:, positions])
+
+    held, dtypes, prompt_read = {}, [], None
+    with recurrence_ranges() as rec_calls:
+        if flash_per_prefill:
+            (logits, caches), held, dtypes = held_flash_calls(
+                f"{arch} prefill", prefill, FAMILY_HELD_CALLS[arch])
+        else:
+            logits, caches = prefill()
+    if not (torch.argmax(logits[:, -1], -1).cpu().numpy()
+            == gen[:, 0]).all():
+        raise AssertionError(f"{arch}: prefill's greedy token != serve's")
+    if flash_per_prefill:
+        # The prefill's logits and the prompt's at every 64th position:
+        # the kernel route against the plain route, and the hidden-tile
+        # control against the plain route.
+        tol = limits["prompt"]
+        plain_last, _ = prefill(Model(cfg, plain=True))
+        pos = torch.tensor(prompt_positions(p), device=dev)
+        plain_pos = logits_at(params, inputs["tokens"], pos, True)
+        with plain_attention_replaced(prompt_tile):
+            control_pos = logits_at(params, inputs["tokens"], pos, True)
+        prompt_read = {
+            "positions": pos.tolist(), "limits": list(tol),
+            "prefill_kernel_vs_plain": logit_reading(logits, plain_last,
+                                                     tol),
+            "kernel_vs_plain": logit_reading(
+                logits_at(params, inputs["tokens"], pos, False), plain_pos,
+                tol),
+            "control_vs_plain": logit_reading(control_pos, plain_pos, tol)}
+        hold(f"{arch} prompt logits kernel vs plain",
+             max(prompt_read["prefill_kernel_vs_plain"]["tol_ratio"],
+                 prompt_read["kernel_vs_plain"]["tol_ratio"]),
+             prompt_read["control_vs_plain"]["tol_ratio"])
+        del plain_last, plain_pos, control_pos
+    timings = recurrence_timings(rec_calls)
+    del rec_calls
+
+    def teacher_forced(m, prm, start):
+        """Logits of the prompt's last token and of ``TEACHER_STEPS``
+        decode steps of serve's tokens, from a prefill (``start``: its
+        logits and caches, or None to run one)."""
+        lg, cch = start or prefill(m, prm)
+        steps = [lg[:, 0]]
+        for j in range(TEACHER_STEPS):
+            lg, cch = m.decode_step(prm, forced[:, j:j + 1], cch)
+            steps.append(lg[:, 0])
+        return torch.stack(steps, 1), cch
+
+    def decode_readings(prm, steps, tol=None):
+        """Decode steps against one full-sequence forward (the recurrent
+        states against the chunked or scanned form, the ring caches past
+        their wrap, the cross caches), and against the control."""
+        tol = tol or (LOGIT_ATOL, LOGIT_RTOL)
+        tail = slice(p - 1, None)
+        sound = logit_reading(steps, logits_at(prm, seq, tail, False), tol)
+        if "rwkv" in cfg.block_pattern:
+            with wkv_state_zeroed(WKV_CONTROL_AT):
+                control = logit_reading(steps, logits_at(prm, seq, tail,
+                                                         False), tol)
+        else:
+            with plain_attention_replaced(decode_tile):
+                control = logit_reading(steps, logits_at(prm, seq, tail,
+                                                         True), tol)
+        return {"limits": list(tol), "decode_vs_full": sound,
+                "decode_vs_control_full": control}
+
+    # Served dtype: read (and held where FAMILY_LIMITS holds it).
+    steps, caches = teacher_forced(model, params, (logits, caches))
+    held_dtype, atol, rtol = limits["decode"]
+    served = decode_readings(params, steps, (atol, rtol)
+                             if held_dtype == cfg.dtype else None)
+    if held_dtype == cfg.dtype:
+        decode_held = served
+    else:
+        # The same weights widened: decode and the full sequence then
+        # differ by float32 rounding alone.
+        wide_cfg = cfg.replace(dtype=held_dtype)
+        wide_model = Model(wide_cfg)
+        wide = wide_model.load(params.state_dict())
+        wide_steps, _ = teacher_forced(wide_model, wide, None)
+        decode_held = decode_readings(wide, wide_steps, (atol, rtol))
+        del wide, wide_steps
+    decode_held["dtype"] = held_dtype
+    hold(f"{arch} teacher-forced decode vs full sequence ({held_dtype})",
+         decode_held["decode_vs_full"]["tol_ratio"],
+         decode_held["decode_vs_control_full"]["tol_ratio"])
+    if "rwkv" in cfg.block_pattern:
+        # The yardstick of bfloat16 rounding here: the full forward with
+        # the scan form of the WKV against the chunked form (read).
+        tail = slice(p - 1, None)
+        with wkv_forms_swapped():
+            scan_full = logits_at(params, seq, tail, False)
+        served["full_scan_vs_chunked"] = logit_reading(
+            scan_full, logits_at(params, seq, tail, False))
+        del scan_full
+
+    with recurrence_ranges():
+        prefill_prof = device_profile(prefill)
+        decode_prof = device_profile(lambda: model.decode_step(
+            params, forced[:, :1], caches))
+    del caches, logits, steps
+    emit("lm_families", arch=arch, layers=cfg.num_layers,
+         encoder_layers=cfg.encoder_layers, blocks=list(cfg.block_pattern),
+         d_model=cfg.d_model, heads=[cfg.num_heads, cfg.num_kv_heads],
+         head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+         params=n_params, dtype=cfg.dtype, **shape,
+         encoder_seq=cfg.encoder_seq or None, init_s=init_s,
+         prefill_ms=stats["prefill_ms"],
+         decode_tokens_per_s=stats["decode_tokens_per_s"],
+         launches=launches, max_memory_allocated=torch.cuda
+         .max_memory_allocated(), held_flash_calls=held,
+         flash_call_dtypes={d: dtypes.count(d) for d in sorted(set(dtypes))},
+         control_keys={"prompt": [control_keys[0].start,
+                                  control_keys[0].stop],
+                       "decode": [control_keys[1].start,
+                                  control_keys[1].stop]},
+         prompt_logits=prompt_read, teacher_forced_steps=TEACHER_STEPS,
+         decode_served_dtype=served, decode_held=decode_held,
+         recurrence=timings, prefill_profile=prefill_prof,
+         decode_step_profile=decode_prof,
+         sample_output=stats["sample_output"],
+         phase_s=time.perf_counter() - t_phase)
+    return {"flash_launches": launches["flash_attention"],
+            "recurrence": timings}
+
+
+def phase_lm_families(dev, reset_counts, read_counts) -> dict:
+    """The architectures of ``LM_FAMILIES``, one after the other (each
+    one's weights are freed before the next is drawn)."""
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    for arch in LM_FAMILIES:
+        out[arch] = lm_family_one(dev, arch, reset_counts, read_counts)
+        torch.cuda.empty_cache()
+    emit("lm_families_done", archs=list(LM_FAMILIES),
+         phase_s=time.perf_counter() - t0)
+    return out
 
 
 def phase_lm_moe(dev, reset_counts, read_counts) -> dict:
@@ -3173,13 +3736,15 @@ def main() -> int:
     tiled = phase_tiled(dev, wide_frame, reset_counts, read_counts, err)
     delta = phase_delta(wide_frame, tiled)
 
-    # -- 14-16b. flash attention, LM serving, LM forward, the MoE decoders --
+    # -- 14-16c. flash attention, LM serving, LM forward, the MoE decoders,
+    # the other LM families --
     fa = phase_flash_attention(dev, rng, err)
     lm = phase_lm_serve(dev, reset_counts, read_counts)
     phase_lm_forward(dev, lm.pop("params"), reset_counts, read_counts)
     torch.cuda.empty_cache()                    # the 12 B weights are gone
     moe_launches = phase_lm_moe(dev, reset_counts, read_counts)
     torch.cuda.empty_cache()
+    families = phase_lm_families(dev, reset_counts, read_counts)
 
     # -- 17. the distributed pipeline ----------------------------------------
     pipeline = phase_pipeline(reset_counts, read_counts, err)
@@ -3256,6 +3821,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention/kernel.py:35",
          "launches": lm["launches"]["flash_attention"],
          "moe_launches": moe_launches,
+         "lm_families_launches": {arch: f["flash_launches"]
+                                  for arch, f in families.items()},
          "max_abs_err": err["flash_attention"], **fa,
          "design": DESIGN["flash_attention"]},
     ]

@@ -4,9 +4,9 @@ The port's own copy of ``repro.configs.base``: the same fields, defaults and
 numbers, so a config compares equal field by field across the packages.
 The sharding and rematerialisation knobs (``scan_layers``, ``remat``,
 ``seq_shard``) are carried as data; the port runs one device and eager
-layers.  Only the decoders whose blocks the port runs are registered
-(``ARCH_IDS``: attention blocks with dense MLPs or mixtures of experts);
-the others need block kinds still to be ported (ROADMAP.md, queue 1).
+layers.  ``ARCH_IDS`` lists the reference's ten architectures in its
+order: decoders of attention, mixture-of-experts, RWKV-6 and RG-LRU
+blocks, and the Whisper encoder-decoder.
 """
 from __future__ import annotations
 
@@ -92,18 +92,25 @@ SHAPES = {
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
 
-# The architectures whose blocks the port runs (attention decoders, dense
-# or mixture-of-experts).
-ARCH_IDS = ["llama4_scout_17b_a16e", "dbrx_132b", "chameleon_34b",
-            "gemma_7b", "mistral_nemo_12b", "qwen1_5_0_5b"]
+ARCH_IDS = [
+    "rwkv6_3b",
+    "llama4_scout_17b_a16e",
+    "dbrx_132b",
+    "chameleon_34b",
+    "gemma_7b",
+    "mistral_nemo_12b",
+    "qwen1_5_0_5b",
+    "phi3_mini_3_8b",
+    "recurrentgemma_2b",
+    "whisper_small",
+]
 
 
 def _module(arch: str):
     name = arch.replace("-", "_")
     if name not in ARCH_IDS:
-        raise ValueError(f"architecture {arch!r} is not ported (ported: "
-                         f"{ARCH_IDS}; the rest need block kinds of ROADMAP "
-                         f"queue 1)")
+        raise ValueError(f"unknown architecture {arch!r} (known: "
+                         f"{ARCH_IDS})")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

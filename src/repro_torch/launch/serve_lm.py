@@ -4,7 +4,9 @@ Counterpart of ``repro.launch.serve_lm`` on one device.  The weights are
 random, drawn on the model's device from a ``torch.Generator`` seeded
 with ``seed`` (a 12 B-parameter model is never drawn on the host), unless
 the caller hands in built ``params``; the prompts are drawn with numpy
-from the same seed, as the reference draws them.  The KV caches are
+from the same seed, as the reference draws them, and for an
+encoder-decoder config (whisper_small) the float32 frames right after
+them from the same generator.  The KV caches are
 updated in place by each decode step (the reference's are functional).
 Tokens stay on the device until the end, so decode does no per-step
 readback.
@@ -13,8 +15,9 @@ readback.
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --full-config \
         --arch mistral_nemo_12b          # on the card
 
-Any registered decoder serves (``configs.base.ARCH_IDS``: dense or
-mixture-of-experts blocks, rmsnorm or layernorm).  On the card a prefill's
+Every registered architecture serves (``configs.base.ARCH_IDS``: the
+decoders of attention, mixture-of-experts, RWKV-6 and RG-LRU blocks, and
+the Whisper encoder-decoder).  On the card a prefill's
 attention runs the flash kernel at head dims 64, 128 and 256, and the
 plain version at any other (the smoke configs' 16), a route by shape, as
 the reference's.
@@ -34,8 +37,32 @@ from repro_torch.models.model import Model
 
 def make_prompts(vocab_size: int, batch: int, prompt_len: int,
                  seed: int) -> np.ndarray:
+    return make_inputs(vocab_size, batch, prompt_len, seed)["tokens"]
+
+
+def make_inputs(vocab_size: int, batch: int, prompt_len: int, seed: int,
+                frames_shape: tuple | None = None) -> dict:
+    """The prompts (``"tokens"``) and, given ``frames_shape`` (S_enc,
+    D), the encoder's frames (``"frames"``, float32) drawn next from the
+    same generator, as the reference's ``serve`` draws them."""
     rng = np.random.default_rng(seed)
-    return rng.integers(0, vocab_size, (batch, prompt_len), dtype=np.int32)
+    out = {"tokens": rng.integers(0, vocab_size, (batch, prompt_len),
+                                  dtype=np.int32)}
+    if frames_shape is not None:
+        out["frames"] = rng.normal(size=(batch, *frames_shape)).astype(
+            np.float32)
+    return out
+
+
+def model_inputs(cfg, batch: int, prompt_len: int, seed: int,
+                 device) -> dict:
+    """:func:`make_inputs` for ``cfg`` as tensors on ``device``."""
+    frames = (cfg.encoder_seq, cfg.d_model) if cfg.is_encdec else None
+    host = make_inputs(cfg.vocab_size, batch, prompt_len, seed, frames)
+    out = {"tokens": torch.from_numpy(host["tokens"]).to(device).long()}
+    if frames is not None:
+        out["frames"] = torch.from_numpy(host["frames"]).to(device)
+    return out
 
 
 def _sync(device: torch.device) -> None:
@@ -66,12 +93,10 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
         _sync(dev)
         stats["init_s"] = time.perf_counter() - t0
 
-    prompts = make_prompts(cfg.vocab_size, batch, prompt_len, seed)
-    tokens = torch.from_numpy(prompts).to(dev).long()
+    inputs = model_inputs(cfg, batch, prompt_len, seed, dev)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = model.prefill(params, {"tokens": tokens},
-                                   max_len=max_len)
+    logits, caches = model.prefill(params, inputs, max_len=max_len)
     next_tok = torch.argmax(logits[:, -1:], -1)
     _sync(dev)
     t_prefill = time.perf_counter() - t0

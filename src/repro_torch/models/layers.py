@@ -3,8 +3,9 @@
 Counterpart of ``repro.models.layers``.  Dense weights keep the reference's
 ``(in, out)`` layout, so ``x @ w`` is the projection.  Every product
 accumulates in float32 and is cast back to the activation dtype: a
-bfloat16 ``torch.matmul`` does exactly that.  Initializers draw from an
-explicit ``torch.Generator`` on the tensor's device.
+bfloat16 ``torch.matmul`` does exactly that, and operands of two dtypes
+are promoted as jnp promotes them (:func:`matmul`).  Initializers draw
+from an explicit ``torch.Generator`` on the tensor's device.
 """
 from __future__ import annotations
 
@@ -25,7 +26,13 @@ def dense_init(shape, *, generator: torch.Generator, device,
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in the activation dtype, accumulated in float32."""
+    """``x @ w`` in the activation dtype, accumulated in float32.
+
+    Operands of two dtypes multiply in float32, as jnp promotes them (a
+    float32 activation against bfloat16 weights: Whisper's float32
+    frames), and the product is cast to ``x``'s dtype."""
+    if x.dtype != w.dtype:
+        return torch.matmul(x.float(), w.float()).to(x.dtype)
     return torch.matmul(x, w)
 
 

@@ -1,27 +1,29 @@
 """Model facade: init / loss / prefill / decode_step / init_caches over the
-decoder-only configs, with the reference facade's names.
+decoder-only and encoder-decoder configs (selected by config), with the
+reference facade's names.
 
-The blocks that run are ``attn``, ``lattn`` and ``moe`` (GQA attention
-with a dense MLP, a local window, or a mixture of experts), under
-rmsnorm or layernorm; ``rwkv`` and ``rec`` blocks raise
-``NotImplementedError``.
+Decoders run every block kind of ``cfg.block_pattern`` (``attn``,
+``lattn``, ``moe``, ``rwkv``, ``rec``) under rmsnorm or layernorm
+(``models/transformer.py``); ``cfg.is_encdec`` selects Whisper's
+encoder-decoder (``models/encdec.py``), whose prefill takes
+``batch["frames"]`` beside the tokens.
 
-``params`` is the :class:`~repro_torch.models.transformer.Transformer`
-holding the weights on the model's device.  The model runs on the CUDA
+``params`` is the module tree holding the weights on the model's device
+(:class:`~repro_torch.models.transformer.Transformer` or
+:class:`~repro_torch.models.encdec.EncDec`).  The model runs on the CUDA
 device unless the caller passes another ``device`` (the tests pass
 ``"cpu"``); without CUDA, ``Model(cfg)`` raises instead of falling back.
 ``plain=True`` selects the plain attention version on the card (the
 on-card comparison's reference run); the default runs the flash kernel
 on CUDA tensors whose head dim it takes (64, 128, 256) and the plain
-version at other head dims.  Encoder-decoder configs are still to be
-ported.
+version at other head dims.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 def resolve_device(device=None) -> torch.device:
@@ -39,38 +41,42 @@ def resolve_device(device=None) -> torch.device:
 class Model:
     def __init__(self, cfg: ModelConfig, *, device=None,
                  plain: bool = False):
-        if cfg.is_encdec:
-            raise NotImplementedError(
-                "encoder-decoder models are not ported yet (ROADMAP.md "
-                "queue 1)")
         transformer.check_config(cfg)
         self.cfg = cfg
+        self._mod = encdec if cfg.is_encdec else transformer
         self.device = resolve_device(device)
         self.plain = plain
 
     # -- parameters --------------------------------------------------------
-    def init(self, generator: torch.Generator) -> transformer.Transformer:
+    def init(self, generator: torch.Generator):
         """Random weights drawn on the model's device; ``generator`` must
         live there too."""
-        return transformer.init_params(self.cfg, generator=generator,
-                                       device=self.device)
+        return self._mod.init_params(self.cfg, generator=generator,
+                                     device=self.device)
 
-    def load(self, state: dict) -> transformer.Transformer:
+    def load(self, state: dict):
         """Weights from a state dict (e.g. ``convert.params_from_jax``)."""
-        return transformer.params_from_state(self.cfg, state,
-                                             device=self.device)
+        return self._mod.params_from_state(self.cfg, state,
+                                           device=self.device)
 
     # -- steps --------------------------------------------------------------
     def loss_fn(self, params, batch):
-        return transformer.loss_fn(params, batch, plain=self.plain)
+        return self._mod.loss_fn(params, batch, plain=self.plain)
 
     def prefill(self, params, batch, *, max_len: int):
+        if self.cfg.is_encdec:
+            return encdec.prefill(params, batch["frames"], batch["tokens"],
+                                  max_len=max_len, plain=self.plain)
         return transformer.prefill(params, batch["tokens"], max_len=max_len,
                                    plain=self.plain)
 
     def decode_step(self, params, token, caches):
-        return transformer.decode_step(params, token, caches)
+        return self._mod.decode_step(params, token, caches)
 
     def init_caches(self, batch: int, max_len: int):
+        if self.cfg.is_encdec:
+            raise NotImplementedError(
+                "encoder-decoder caches come from prefill() (the cross "
+                "caches need the encoder's output)")
         return transformer.init_caches(self.cfg, batch, max_len,
                                        device=self.device)

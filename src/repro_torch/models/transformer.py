@@ -1,16 +1,19 @@
 """Decoder-only LM assembly: blocks, layer loop, loss, prefill/decode.
 
-Counterpart of ``repro.models.transformer`` for the attention blocks
-(cfg.block_pattern, cycled over layers), under either norm (rmsnorm or
+Counterpart of ``repro.models.transformer``: the blocks of
+``cfg.block_pattern``, cycled over layers, under either norm (rmsnorm or
 layernorm, ``cfg.norm_type``):
 
   attn  — GQA attention + dense MLP
-  lattn — local-window attention + MLP
+  lattn — local-window attention + MLP (a ring KV cache of the window)
   moe   — GQA attention + mixture-of-experts (and a shared expert when
           ``cfg.moe_shared_expert``)
+  rwkv  — RWKV-6 TimeMix + ChannelMix (``models/rwkv6.py``)
+  rec   — RG-LRU recurrent block + MLP (``models/rglru.py``)
 
-``rwkv`` and ``rec`` blocks are still to be ported (ROADMAP.md queue 1)
-and raise ``NotImplementedError``.
+A layer's cache is its KV cache (attention kinds) or its recurrent state
+(``rwkv``: token-shift inputs and the WKV state; ``rec``: the conv inputs
+and h).
 
 Parameters are ``nn.Module`` trees that mirror the reference's parameter
 tree name for name, so a state-dict key is the reference's path with the
@@ -26,18 +29,14 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, moe as moe_lib
+from repro_torch.models import rglru, rwkv6
 
-BLOCK_KINDS = ("attn", "lattn", "moe")
-_UNPORTED_KINDS = ("rwkv", "rec")
+BLOCK_KINDS = ("attn", "lattn", "moe", "rwkv", "rec")
 NORM_TYPES = ("rmsnorm", "layernorm")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check_kind(kind: str) -> None:
-    if kind in _UNPORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP.md queue 1: "
-            f"the rwkv6 and rglru blocks)")
     if kind not in BLOCK_KINDS:
         raise ValueError(kind)
 
@@ -81,29 +80,43 @@ def norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     return layers.rmsnorm(p["scale"], x)
 
 
+def prefixed(prefix: str, shapes: dict) -> dict:
+    return {f"{prefix}.{k}": v for k, v in shapes.items()}
+
+
 def block_shapes(cfg: ModelConfig, kind: str) -> dict:
     """Shapes of one block's parameters by dotted name."""
     check_kind(kind)
+    d = cfg.d_model
+    mlp = layers.mlp_shapes(d, cfg.d_ff, cfg.mlp_type)
+    if kind == "rwkv":
+        return {**_norm_shapes(cfg, "norm1"),
+                **prefixed("tm", rwkv6.timemix_shapes(d)),
+                **_norm_shapes(cfg, "norm2"),
+                **prefixed("cm", rwkv6.channelmix_shapes(d, cfg.d_ff))}
+    if kind == "rec":
+        return {**_norm_shapes(cfg, "norm1"),
+                **prefixed("rec", rglru.recurrent_shapes(
+                    d, cfg.rnn_width, cfg.conv_width)),
+                **_norm_shapes(cfg, "norm2"), **prefixed("mlp", mlp)}
     spec = attn_spec(cfg, local=kind == "lattn")
     shapes = _norm_shapes(cfg, "norm1")
-    shapes.update({f"attn.{k}": v
-                   for k, v in attention.attention_shapes(spec).items()})
+    shapes.update(prefixed("attn", attention.attention_shapes(spec)))
     shapes.update(_norm_shapes(cfg, "norm2"))
-    mlp = layers.mlp_shapes(cfg.d_model, cfg.d_ff, cfg.mlp_type)
     if kind == "moe":
-        shapes.update({f"moe.{k}": v for k, v in
-                       moe_lib.moe_shapes(moe_spec(cfg)).items()})
+        shapes.update(prefixed("moe", moe_lib.moe_shapes(moe_spec(cfg))))
         if cfg.moe_shared_expert:
-            shapes.update({f"shared.{k}": v for k, v in mlp.items()})
+            shapes.update(prefixed("shared", mlp))
     else:
-        shapes.update({f"mlp.{k}": v for k, v in mlp.items()})
+        shapes.update(prefixed("mlp", mlp))
     return shapes
 
 
 def leaf_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
-    """A parameter's dtype: the config's, but float32 for MoE routers in
-    every config (the reference's ``init_moe``)."""
-    if name.endswith(".moe.router"):
+    """A parameter's dtype: the config's, but float32 for MoE routers and
+    the RG-LRU's ``lam`` in every config (the reference's ``init_moe`` and
+    ``init_recurrent_block``)."""
+    if name.endswith((".moe.router", ".rec.lam")):
         return torch.float32
     return DTYPES[cfg.dtype]
 
@@ -137,7 +150,8 @@ class ParamTree(nn.Module):
         return getattr(self, name)
 
 
-def _unflatten(state: dict) -> dict:
+def unflatten(state: dict) -> dict:
+    """A flat state dict as the nested tree of its dotted names."""
     tree: dict = {}
     for name, tensor in state.items():
         *path, leaf = name.split(".")
@@ -149,8 +163,9 @@ def _unflatten(state: dict) -> dict:
 
 
 class Block(ParamTree):
-    """One attn / lattn / moe layer: pre-norm attention, then a pre-norm
-    MLP (or mixture of experts), each added to the residual stream."""
+    """One layer: pre-norm attention (attn / lattn / moe), RWKV TimeMix
+    (rwkv) or the RG-LRU block (rec), then a pre-norm MLP, mixture of
+    experts or ChannelMix, each added to the residual stream."""
 
     def __init__(self, cfg: ModelConfig, kind: str, tree: dict):
         super().__init__(tree)
@@ -163,6 +178,10 @@ class Block(ParamTree):
         decode.  Returns (x, aux, cache): ``aux`` is the router's
         load-balance loss of a moe block, None for the others."""
         cfg = self.cfg
+        if self.kind == "rwkv":
+            return self._rwkv(x, cache)
+        if self.kind == "rec":
+            return self._rec(x, cache, decode)
         h = norm(cfg, self.norm1, x)
         if cache is None:
             a = attention.apply_attention(self.attn, h, spec=self.spec,
@@ -183,6 +202,34 @@ class Block(ParamTree):
             m = m + layers.mlp_apply(self.shared, h, cfg.mlp_type)
         return x + m, aux, cache
 
+    def _rwkv(self, x, state):
+        """TimeMix, then ChannelMix; a new state from ``state`` (zeros for
+        a full sequence, as the reference starts one)."""
+        cfg = self.cfg
+        if state is None:
+            state = rwkv6.init_rwkv_state(x.shape[0], cfg.d_model,
+                                          dtype=x.dtype, device=x.device)
+        h = norm(cfg, self.norm1, x)
+        tm_out, tm_x, wkv = rwkv6.timemix_apply(
+            self.tm, h, state["tm_x"], state["wkv"], wkv_impl=cfg.wkv_impl)
+        x = x + tm_out
+        h = norm(cfg, self.norm2, x)
+        cm_out, cm_x = rwkv6.channelmix_apply(self.cm, h, state["cm_x"])
+        return x + cm_out, None, {"tm_x": tm_x, "cm_x": cm_x, "wkv": wkv}
+
+    def _rec(self, x, state, decode: bool):
+        cfg = self.cfg
+        if state is None:
+            state = rglru.init_recurrent_state(
+                x.shape[0], cfg.rnn_width, cfg.conv_width, dtype=x.dtype,
+                device=x.device)
+        h = norm(cfg, self.norm1, x)
+        r, state = rglru.recurrent_block_apply(self.rec, h, state,
+                                               decode=decode)
+        x = x + r
+        h = norm(cfg, self.norm2, x)
+        return x + layers.mlp_apply(self.mlp, h, cfg.mlp_type), None, state
+
 
 class Transformer(nn.Module):
     """The decoder's parameters: ``embed``, ``final_norm``, ``lm_head``
@@ -190,7 +237,7 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, state: dict):
         super().__init__()
-        tree = _unflatten(state)
+        tree = unflatten(state)
         self.cfg = cfg
         self.embed = ParamTree(tree["embed"])
         self.final_norm = ParamTree(tree["final_norm"])
@@ -202,35 +249,42 @@ class Transformer(nn.Module):
             for i in range(cfg.num_layers))
 
 
+def init_leaf(cfg: ModelConfig, name: str, shape, dtype, *,
+              generator: torch.Generator, device) -> torch.Tensor:
+    """One parameter drawn by the reference's initializer for its name:
+    fan-in truncated normals for dense weights, the LoRA factors, the
+    conv taps and MoE routers (the LoRA second factors at 1/sqrt(rank),
+    the taps at 1/sqrt(width)), stddev d_model^-0.5 for the embedding,
+    the RG-LRU's ``lam`` from U(0.9, 0.999), zeros for biases, norms,
+    mixes, ``w0`` and ``u``.  As in the reference, the fan-in is a
+    weight's first dim, which for the (E, d, f) expert stacks is the
+    expert count."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf == "lam":
+        return rglru.init_lam(shape[0], generator=generator, device=device)
+    # Dense: the weights named w* but rwkv's w0 (a zero decay offset), and
+    # these.
+    if not (leaf in ("embedding", "lm_head", "router", "tm_w1", "tm_w2",
+                     "conv_w") or (leaf.startswith("w") and leaf != "w0")):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    scale = {"embedding": cfg.d_model ** -0.5,
+             "conv_w": shape[0] ** -0.5, **rwkv6.INIT_SCALES}.get(leaf)
+    return layers.dense_init(shape, generator=generator, device=device,
+                             scale=scale, dtype=dtype)
+
+
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device) -> Transformer:
-    """Random weights drawn on ``device``: fan-in truncated normals for
-    dense weights and MoE routers (float32), stddev d_model^-0.5 for the
-    embedding, zeros for biases and norm scales (the reference's
-    initializers).  As in the reference, the fan-in is a weight's first
-    dim, which for the (E, d, f) expert stacks is the expert count."""
-    state = {}
-    for name, shape in param_shapes(cfg).items():
-        leaf = name.rsplit(".", 1)[-1]
-        dt = leaf_dtype(cfg, name)
-        if leaf == "embedding":
-            state[name] = layers.dense_init(
-                shape, generator=generator, device=device,
-                scale=cfg.d_model ** -0.5, dtype=dt)
-        elif leaf.startswith("w") or leaf in ("lm_head", "router"):
-            state[name] = layers.dense_init(shape, generator=generator,
-                                            device=device, dtype=dt)
-        else:
-            state[name] = torch.zeros(shape, dtype=dt, device=device)
-    return Transformer(cfg, state)
+    """Random weights drawn on ``device`` (:func:`init_leaf`)."""
+    return Transformer(cfg, {
+        name: init_leaf(cfg, name, shape, leaf_dtype(cfg, name),
+                        generator=generator, device=device)
+        for name, shape in param_shapes(cfg).items()})
 
 
-def params_from_state(cfg: ModelConfig, state: dict, *,
-                      device) -> Transformer:
-    """A :class:`Transformer` from a full state dict (names and shapes of
-    :func:`param_shapes`), each leaf cast to :func:`leaf_dtype` on
-    ``device`` (tensors already there in that dtype are shared)."""
-    want = param_shapes(cfg)
+def check_state(cfg: ModelConfig, state: dict, want: dict) -> None:
+    """Raise unless ``state`` has exactly the names and shapes of
+    ``want``."""
     got = {k: tuple(v.shape) for k, v in state.items()}
     if got != want:
         missing = sorted(set(want) - set(got))
@@ -239,6 +293,14 @@ def params_from_state(cfg: ModelConfig, state: dict, *,
         raise ValueError(f"state does not fit {cfg.name}: missing "
                          f"{missing[:5]}, unexpected {extra[:5]}, wrong "
                          f"shapes {wrong[:5]}")
+
+
+def params_from_state(cfg: ModelConfig, state: dict, *,
+                      device) -> Transformer:
+    """A :class:`Transformer` from a full state dict (names and shapes of
+    :func:`param_shapes`), each leaf cast to :func:`leaf_dtype` on
+    ``device`` (tensors already there in that dtype are shared)."""
+    check_state(cfg, state, param_shapes(cfg))
     return Transformer(cfg, {k: v.to(device=device, dtype=leaf_dtype(cfg, k))
                              for k, v in state.items()})
 
@@ -298,12 +360,26 @@ def loss_fn(params: Transformer, batch: dict, *,
     return ce + aux, {"ce": ce, "aux": aux}
 
 
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     *, device):
+    dt = DTYPES[cfg.dtype]
+    if kind == "rwkv":
+        return rwkv6.init_rwkv_state(batch, cfg.d_model, dtype=dt,
+                                     device=device)
+    if kind == "rec":
+        return rglru.init_recurrent_state(batch, cfg.rnn_width,
+                                          cfg.conv_width, dtype=dt,
+                                          device=device)
+    return attention.init_cache(batch, max_len,
+                                attn_spec(cfg, local=kind == "lattn"),
+                                dtype=dt, device=device)
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                 device) -> list:
-    dt = DTYPES[cfg.dtype]
-    return [attention.init_cache(
-        batch, max_len, attn_spec(cfg, local=cfg.block_kind(i) == "lattn"),
-        dtype=dt, device=device) for i in range(cfg.num_layers)]
+    """One cache a layer: a KV cache or a recurrent state."""
+    return [init_block_cache(cfg, cfg.block_kind(i), batch, max_len,
+                             device=device) for i in range(cfg.num_layers)]
 
 
 @torch.no_grad()

@@ -497,6 +497,61 @@ def test_smoke_moe_serve_on_card_matches_cpu_run(arch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", [
+    (12, 12, 1500, 1500, 64, False, None),     # whisper's encoder
+    (12, 12, 224, 1500, 64, False, None),      # its cross-attention
+    (10, 1, 3072, 3072, 256, True, 2048),      # recurrentgemma's lattn
+], ids=["encoder_1500", "cross_224x1500", "mqa10_hd256_window"])
+def test_flash_kernel_at_lm_family_shapes(case, dtype, tol):
+    """Whisper's non-causal ragged 1500-key encoder call and its
+    cross-attention (Sq != Skv), and recurrentgemma's local attention (MQA
+    10/1, hd 256, a 2048 window over 3072 tokens), on (B, S, H, hd)
+    views as the model passes them."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, kv, sq, skv, hd, causal, window = case
+    g = torch.Generator(device="cuda").manual_seed(sq + skv)
+    q, k, v = (torch.randn(2, s, n, hd, device="cuda", generator=g)
+               .to(dtype).transpose(1, 2)
+               for s, n in ((sq, h), (skv, kv), (skv, kv)))
+    kfa.LIBRARY.launches = 0
+    got = kfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    assert kfa.LIBRARY.launches == 1 and got.dtype == dtype
+    want = rfa.attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi3_mini_3_8b", "rwkv6_3b",
+                                  "recurrentgemma_2b", "whisper_small"])
+def test_smoke_lm_family_serve_on_card_matches_cpu_run(arch):
+    """The RWKV-6, RG-LRU, encoder-decoder and phi3 smoke configs served
+    on the card with the devices left at their defaults (their head dims
+    take the plain route: no flash launch) give the greedy tokens and
+    prefill logits of a host run of the same float32 weights."""
+    _need_cuda()
+    cfg = get_smoke_config(arch)
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    state = {k: t.detach() for k, t in params.state_dict().items()}
+    gpu_params = Model(cfg).load(state)
+    kw = dict(batch=2, prompt_len=40, gen_len=8, max_len=64, seed=1,
+              verbose=False)
+    kfa.LIBRARY.launches = 0
+    got, _ = serve_lm.serve(arch, params=gpu_params, **kw)
+    assert kfa.LIBRARY.launches == 0
+    want, _ = serve_lm.serve(arch, device="cpu", params=params, **kw)
+    np.testing.assert_array_equal(got, want)
+    inputs = serve_lm.model_inputs(cfg, 2, 40, 1, "cpu")
+    lg_cpu, _ = Model(cfg, device="cpu").prefill(params, inputs, max_len=64)
+    lg_gpu, _ = Model(cfg).prefill(
+        gpu_params, {k: t.cuda() for k, t in inputs.items()}, max_len=64)
+    torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
 def test_smoke_serve_on_card_matches_cpu_run():
     """The same float32 weights (smoke mistral, head_dim 64 so the kernel
     takes it) on the card and on the host: prefill logits within 1e-4,
