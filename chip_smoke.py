@@ -199,7 +199,36 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
              walls in turns with an untuned engine; lookups that launch
              and write nothing; ``python -m
              repro_torch.launch.ph_distances`` as a subprocess, its
-             matrices equal to ``distance_matrix`` in process.
+             matrices equal to ``distance_matrix`` in process;
+20. lm_train — the training step of qwen1_5_0_5b at its published width
+             and depth (bf16, random weights from seed 0) at 4 x 4096
+             tokens (``TRAIN_SHAPE``; train_4k's rows, the batch cut from
+             256): one ``train_bundle`` step through the kernel, one
+             through the plain attention and one through the hidden-tile
+             control on the same weights and batch (the loss before and
+             after the step within ``LOSS_ATOL``, the grad norm within
+             ``GRAD_NORM_RTOL``, the attention projections' first moments
+             within ``MOMENT_RTOL``; those of ``TRAIN_HELD`` held, each
+             failed by the control); the step's
+             first and last forward flash calls and its last recompute
+             call held to plain; flash launches 48 a step (``remat="full"``:
+             the forward pass and the recompute; the backward is the plain
+             recompute) and 24 with ``remat="none"``, the peak memory of
+             each; warm step ms, tokens/s and the model-FLOPs share of the
+             bf16 peak; one step under ``torch.profiler`` (GEMM, flash
+             forward, attention backward, optimizer, other, idle);
+             ``train`` of ``TRAIN_STEPS`` steps with a checkpoint every
+             ``TRAIN_CKPT_EVERY`` into a temporary directory under
+             ``build/`` (the last checkpoint bitwise equal to the trained
+             weights; an asynchronous save unmoved by the in-place update
+             that follows it), then resumed from the first checkpoint,
+             its losses within ``LOSS_ATOL`` of the uninterrupted run's;
+             mistral_nemo_12b at full width and ``TRAIN_GQA``'s 4 layers
+             (GQA 32/8, hd 128), 2 x 2048, kernel vs plain vs control as
+             above, the grad norm and moments held (8 flash launches a
+             step); ``examples/train_lm_torch.py``
+             (150 steps, the last loss below the first); the temporary
+             directory removed.
 
 Every kernel is timed two ways: ``ms`` is one call's CUDA-event time
 (``cuda_ms``: the host's launch overhead falls inside the interval when it
@@ -421,6 +450,40 @@ WKV_CONTROL_AT = 1024
 # relative to the largest output element, as tests/test_torch_recurrent.py
 # holds them (the two forms order their sums differently).
 WKV_TOL = 1e-5
+# lm_train: the training step of qwen1_5_0_5b at its published width and
+# depth (bfloat16, random weights drawn on the card from seed 0), at
+# train_4k's 4096 tokens a row and a global batch cut from 256 to 4 to fit
+# one card; ``train`` runs TRAIN_STEPS steps with a checkpoint every
+# TRAIN_CKPT_EVERY, then resumes from the first checkpoint.
+TRAIN_ARCH = "qwen1_5_0_5b"
+TRAIN_SHAPE = dict(seq_len=4096, global_batch=4)
+TRAIN_STEPS = 6
+TRAIN_CKPT_EVERY = 3
+# GQA and head dim 128 in training: mistral_nemo_12b at full width, 4 of
+# its 40 layers (weights, grads and moments ~29 GB), 2 x 2048 tokens.
+TRAIN_GQA = ("mistral_nemo_12b", 4, dict(seq_len=2048, global_batch=2))
+# One train step through the kernel against one through the plain
+# attention, same weights and batch, read four ways: the loss before the
+# step and after it (within LOSS_ATOL), the gradient's global norm (within
+# GRAD_NORM_RTOL of the plain run's) and the first moments the step leaves
+# in the attention projections' (wq, wk, wv, wo) optimizer state, 0.1 of
+# their clipped gradients (relative L2 within MOMENT_RTOL).  TRAIN_HELD
+# names the readings each model holds, where the hidden-tile control must
+# fail: at mistral's 4 of 40 layers the random-weight loss barely depends
+# on attention (the control moved it 1.7e-5, the kernel's rounding 2.2e-4),
+# so its losses are read, not held.  Each limit lies between the kernel's
+# reading and the control's (PERF.md gives both).
+GRAD_NORM_RTOL = 1e-3
+MOMENT_RTOL = 0.05
+TRAIN_HELD = {"qwen1_5_0_5b": ("loss", "loss_after", "grad_norm",
+                               "attention_moments"),
+              "mistral_nemo_12b": ("grad_norm", "attention_moments")}
+# examples/train_lm_torch.py on the card: its own defaults.
+TRAIN_EXAMPLE_ARGS = ()
+# Profiler ranges of a train step's attention backward (the plain
+# recompute and its gradient) and optimizer update, by kind.
+TRAIN_RANGES = {"lm_train.attention_backward": "attention_backward",
+                "lm_train.optimizer": "optimizer"}
 # The design of each kernel.
 DESIGN = {"ph_phase_a": "one launch per strip: a 16-byte-vector stencil, "
                         "16-bit pointers and an escape table in shared "
@@ -2397,7 +2460,8 @@ def held_flash_calls(label: str, fn, picks=None):
     for name, index in picks.items():
         q, k, v, kw = kept[index]
         dtype = str(q.dtype).removeprefix("torch.")
-        got, want = launch(q, k, v, **kw), rfa.attention(q, k, v, **kw)
+        with torch.no_grad():     # a train step's q, k, v record grads
+            got, want = launch(q, k, v, **kw), rfa.attention(q, k, v, **kw)
         err, tol = max_abs_diff(got, want), FLASH_TOL[dtype]
         if not torch.allclose(got.float(), want.float(), atol=tol,
                               rtol=tol):
@@ -3173,6 +3237,400 @@ def phase_lm_moe(dev, reset_counts, read_counts) -> dict:
             for arch, depth in MOE_DEPTH.items()}
 
 
+class train_ranges:
+    """Within the block, the flash op's backward (the plain recompute and
+    its gradient) and ``AdamW.update`` run inside the profiler ranges of
+    ``TRAIN_RANGES``."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels.flash_attention import ops
+        from repro_torch.optim.adamw import AdamW
+        backward, update = ops._FlashAttention.backward, AdamW.update
+        self.saved = backward, update
+        names = list(TRAIN_RANGES)
+
+        def ranged_backward(ctx, g):
+            with torch.profiler.record_function(names[0]):
+                return backward(ctx, g)
+
+        def ranged_update(opt, *args, **kw):
+            with torch.profiler.record_function(names[1]):
+                return update(opt, *args, **kw)
+
+        ops._FlashAttention.backward = staticmethod(ranged_backward)
+        AdamW.update = ranged_update
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.flash_attention import ops
+        from repro_torch.optim.adamw import AdamW
+        ops._FlashAttention.backward = staticmethod(self.saved[0])
+        AdamW.update = self.saved[1]
+
+
+def _train_kind(event, name: str) -> str:
+    while event is not None:
+        if event.name in TRAIN_RANGES:
+            return TRAIN_RANGES[event.name]
+        event = event.cpu_parent
+    if "flash_fwd" in name.lower():
+        return "flash_forward"
+    return "gemm" if _is_gemm(name) else "other"
+
+
+def train_step_profile(fn) -> dict:
+    """One run of ``fn`` (a train step) under ``torch.profiler`` within
+    ``train_ranges``: host wall ms, device busy ms (kernels and copies
+    summed; one stream), the idle share, and device ms by kind: the flash
+    kernel's forward calls (the forward pass and the remat recompute),
+    the attention backward (every kernel launched inside the flash op's
+    backward: the plain recompute's einsums and softmax and their
+    gradients), the optimizer (every kernel inside ``AdamW.update``),
+    the other GEMMs, the rest."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with train_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, launches = 0.0, 0
+    kinds = dict.fromkeys(("gemm", "flash_forward", "attention_backward",
+                           "optimizer", "other"), 0.0)
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            if event.name in TRAIN_RANGES or getattr(
+                    event, "is_user_annotation", False):
+                continue                # a range's span, not a kernel
+            launches += 1
+            busy += event.time_range.elapsed_us() / 1e3
+        else:
+            for kernel in event.kernels:
+                kinds[_train_kind(event, kernel.name)] += \
+                    kernel.duration / 1e3
+    if not busy:                        # the profiler saw no device work
+        return {"wall_ms": wall_ms, "device_busy_ms": None}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms, "device_events": launches,
+            "device_ms_by_kind": kinds,
+            "unattributed_ms": busy - sum(kinds.values())}
+
+
+def train_batch(cfg, shape: dict, dev) -> dict:
+    """``TokenStream`` batch 0 of ``shape`` on the card."""
+    import torch
+    from repro_torch.data.tokens import TokenStream
+    host = TokenStream(cfg.vocab_size, shape["seq_len"],
+                       shape["global_batch"]).batch_at(0)
+    return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+
+def train_step_readings(cfg, params, start: dict, batch: dict,
+                        reset_counts, read_counts, *,
+                        plain: bool = False) -> dict:
+    """``params`` set to ``start``, then one ``train_bundle`` step
+    (``AdamW()``, a fresh state) through the kernel or the plain
+    attention, and the loss after it by the same route: the step's loss,
+    grad norm, loss after, launches, peak memory and wall ms."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW
+
+    with torch.no_grad():
+        for k, p in params.named_parameters():
+            p.copy_(start[k])
+    b, s = batch["inputs"].shape
+    bundle = steps.train_bundle(cfg, ShapeConfig("lm_train", s, b, "train"),
+                                plain=plain)
+    opt_state = AdamW().init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    _, opt_state, m = bundle.fn(params, opt_state, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    moments = torch.cat([mu.flatten() for k, mu in opt_state.mu.items()
+                         if ".attn.w" in k])
+    del opt_state
+    with torch.no_grad():
+        after, _ = Model(cfg, plain=plain).loss_fn(params, batch)
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "loss_after": float(after), "lr": float(m["lr"]),
+           "launches": launches, "max_memory_allocated": peak,
+           "wall_ms": wall_ms}
+    for k in ("loss", "grad_norm", "loss_after"):
+        if not math.isfinite(out[k]):
+            raise AssertionError(f"{cfg.name} train step: {k} {out[k]}")
+    if not bool(torch.isfinite(moments).all()):
+        raise AssertionError(f"{cfg.name} train step: non-finite moments")
+    return out, moments
+
+
+def hold_train_step(label: str, held: tuple, sound: tuple, plain: tuple,
+                    control: tuple) -> dict:
+    """The kernel's step against the plain step, each a (readings, first
+    moments) pair of ``train_step_readings``: loss before and after in
+    units of ``LOSS_ATOL``, grad norm of ``GRAD_NORM_RTOL`` of the plain
+    run's, the attention projections' first moments (relative L2) of
+    ``MOMENT_RTOL``.  The readings of ``held`` must pass and the
+    hidden-tile control must fail each of them; the others are read."""
+    import torch
+    want, want_mu = plain
+
+    def ratios(run):
+        r, mu = run
+        return {"loss": abs(r["loss"] - want["loss"]) / LOSS_ATOL,
+                "loss_after": abs(r["loss_after"] - want["loss_after"])
+                / LOSS_ATOL,
+                "grad_norm": abs(r["grad_norm"] - want["grad_norm"])
+                / (GRAD_NORM_RTOL * want["grad_norm"]),
+                "attention_moments": float(torch.linalg.vector_norm(
+                    mu - want_mu) / torch.linalg.vector_norm(want_mu))
+                / MOMENT_RTOL}
+    got, ctl = ratios(sound), ratios(control)
+    for k in held:
+        hold(f"{label}: {k}", got[k], ctl[k])
+    return {"held": list(held), "kernel_tol_ratio": got,
+            "control_tol_ratio": ctl}
+
+
+def train_kernel_vs_plain(cfg, shape: dict, dev, reset_counts, read_counts,
+                          picks: dict) -> dict:
+    """Weights drawn from seed 0 on the card; one train step through the
+    kernel (its flash calls of ``picks`` held to plain), one through the
+    plain attention and one through the hidden-tile control, from the
+    same weights on the same batch.  Returns the readings and, under
+    ``"params"`` / ``"start"`` / ``"batch"``, what a caller goes on
+    with."""
+    import torch
+    from repro_torch.models.model import Model
+
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    start = {k: p.detach().clone() for k, p in params.named_parameters()}
+    batch = train_batch(cfg, shape, dev)
+    step = functools.partial(train_step_readings, cfg, params, start, batch,
+                             reset_counts, read_counts)
+    kernel, held, dtypes = held_flash_calls(f"{cfg.name} train step", step,
+                                            picks)
+    plain = step(plain=True)
+    with plain_attention_replaced(hidden_tile_attention):
+        control = step(plain=True)
+    expected = 2 * cfg.num_layers if cfg.remat == "full" else cfg.num_layers
+    want = dict.fromkeys(kernel[0]["launches"], 0) | {
+        "flash_attention": expected}
+    if kernel[0]["launches"] != want or any(plain[0]["launches"].values()):
+        raise AssertionError(f"{cfg.name} train step launched "
+                             f"{kernel[0]['launches']} (plain route "
+                             f"{plain[0]['launches']}), expected {want}")
+    readings = hold_train_step(f"{cfg.name} train step",
+                               TRAIN_HELD[cfg.name], kernel, plain, control)
+    return {"kernel": kernel[0], "plain": plain[0], "control": control[0],
+            "held_flash_calls": held, "flash_call_dtypes": sorted(set(dtypes)),
+            **readings, "params": params, "start": start, "batch": batch}
+
+
+def train_resume(params, start: dict, root: Path, dev) -> dict:
+    """``train`` of ``TRAIN_STEPS`` steps from ``start`` with a checkpoint
+    every ``TRAIN_CKPT_EVERY``; the last checkpoint's parameters equal
+    the trained ones bitwise; an asynchronous save holds its values
+    while the parameters are updated in place at once; then the run is
+    resumed from its first checkpoint, whose later losses must agree
+    with the uninterrupted run's within ``LOSS_ATOL``."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch.train import train
+
+    with torch.no_grad():
+        for k, p in params.named_parameters():
+            p.copy_(start[k])
+    kw = dict(steps=TRAIN_STEPS, smoke=False, ckpt_every=TRAIN_CKPT_EVERY,
+              log_every=1, verbose=False, params=params, **TRAIN_SHAPE)
+    ckpt_dir = root / "run"
+    t0 = time.perf_counter()
+    whole = train(TRAIN_ARCH, ckpt_dir=str(ckpt_dir), **kw)
+    train_s = time.perf_counter() - t0
+    losses = [h["loss"] for h in whole]
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train losses {losses}")
+    target = ({k: torch.empty_like(p, device="meta")
+               for k, p in params.named_parameters()},)
+    t0 = time.perf_counter()
+    (saved,), _, step = ckpt.restore(ckpt_dir, target, device=dev)
+    restore_s = time.perf_counter() - t0
+    unequal = [k for k, p in params.named_parameters()
+               if not torch.equal(saved[k], p.detach())]
+    if step != TRAIN_STEPS or unequal:
+        raise AssertionError(f"checkpoint of step {step}: {len(unequal)} "
+                             f"tensors differ from the trained ones, e.g. "
+                             f"{unequal[:3]}")
+    del saved
+
+    # An asynchronous save, then an in-place update at once (as the next
+    # train step makes): the checkpoint holds the values of the save.
+    before = {k: p.detach().clone() for k, p in params.named_parameters()}
+    saver = ckpt.AsyncCheckpointer()
+    saver.save(root / "async", 1, (params,))
+    with torch.no_grad():
+        for p in params.parameters():
+            p.add_(1.0)
+    saver.join()
+    (back,), _, _ = ckpt.restore(root / "async", target, device=dev)
+    if not all(torch.equal(back[k], before[k]) for k in before):
+        raise AssertionError("an asynchronous save caught the in-place "
+                             "update that followed it")
+    del back, before
+
+    # Killed after the first checkpoint: its later checkpoint removed,
+    # the same call resumes from step TRAIN_CKPT_EVERY.
+    shutil.rmtree(ckpt_dir / f"step_{TRAIN_STEPS:08d}")
+    t0 = time.perf_counter()
+    resumed = train(TRAIN_ARCH, ckpt_dir=str(ckpt_dir), **kw)
+    resume_s = time.perf_counter() - t0
+    if [h["step"] for h in resumed] != list(range(TRAIN_CKPT_EVERY,
+                                                   TRAIN_STEPS)):
+        raise AssertionError(f"resumed steps {[h['step'] for h in resumed]}")
+    diffs = [abs(a["loss"] - b["loss"])
+             for a, b in zip(whole[TRAIN_CKPT_EVERY:], resumed)]
+    if not max(diffs) <= LOSS_ATOL:
+        raise AssertionError(f"resumed losses differ by {max(diffs)} "
+                             f"(limit {LOSS_ATOL})")
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*.npy")
+                     if f.parent.name == f"step_{TRAIN_STEPS:08d}")
+    return {"history": whole, "resumed": resumed,
+            "resume_max_loss_diff": max(diffs), "loss_atol": LOSS_ATOL,
+            "train_s": train_s, "resume_s": resume_s,
+            "restore_s": restore_s, "checkpoint_bytes": ckpt_bytes,
+            "restored_bitwise_equal": True, "async_save_held": True}
+
+
+def train_example(reset_counts, read_counts, root: Path) -> dict:
+    """``examples/train_lm_torch.py`` on the card (its defaults), its
+    checkpoints under ``root``: the last loss below the first."""
+    import importlib.util
+    import torch
+    spec = importlib.util.spec_from_file_location(
+        "train_lm_torch", ROOT / "examples" / "train_lm_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    reset_counts()
+    t0 = time.perf_counter()
+    history = example.main([*TRAIN_EXAMPLE_ARGS, "--ckpt-dir",
+                            str(root / "example")])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    first, last = history[0], history[-1]
+    if not last["loss"] < first["loss"]:
+        raise AssertionError(f"example loss {first['loss']} -> "
+                             f"{last['loss']}")
+    return {"first_loss": first["loss"], "last_loss": last["loss"],
+            "steps": last["step"] + 1, "tokens_per_s": last["tokens_per_s"],
+            "wall_s": wall_s, "launches": read_counts()}
+
+
+def phase_lm_train(dev, reset_counts, read_counts) -> dict:
+    """Phase 20: the training step of ``TRAIN_ARCH`` at full width and
+    depth, kernel against plain, both remat settings, timed and
+    profiled; ``train`` with checkpoints and a resume; mistral's GQA and
+    head dim 128 in training at ``TRAIN_GQA``'s depth; the example.
+    Returns the flash launches by run."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch import steps
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.roofline.analysis import model_flops
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    b, s = TRAIN_SHAPE["global_batch"], TRAIN_SHAPE["seq_len"]
+    run = train_kernel_vs_plain(
+        cfg, TRAIN_SHAPE, dev, reset_counts, read_counts,
+        {"forward_first": 0, "forward_last": cfg.num_layers - 1,
+         "recompute_last": -1})
+    params, start, batch = run.pop("params"), run.pop("start"), \
+        run.pop("batch")
+    n_params = sum(p.numel() for p in params.parameters())
+
+    # remat "none": the same weights, each layer's flash call once.
+    from repro_torch.models.model import Model
+    cfg_none = cfg.replace(remat="none")
+    params_none = Model(cfg_none).load(params.state_dict())
+    no_remat, _ = train_step_readings(cfg_none, params_none, start, batch,
+                                      reset_counts, read_counts)
+    del params_none
+    if no_remat["launches"]["flash_attention"] != cfg.num_layers:
+        raise AssertionError(f"remat none launched {no_remat['launches']}")
+
+    # Warm steps, timed, then one under the profiler.
+    shape = ShapeConfig("lm_train", s, b, "train")
+    bundle = steps.train_bundle(cfg, shape)
+    opt_state = AdamW().init(params)
+    step_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, opt_state, m = bundle.fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    profile = train_step_profile(
+        lambda: bundle.fn(params, opt_state, batch))
+    del opt_state
+    flops = model_flops(cfg, shape)
+    step_s = min(step_ms) / 1e3
+
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="lm_train_", dir=root))
+    try:
+        resume = train_resume(params, start, tmp, dev)
+        del params, start, batch
+        torch.cuda.empty_cache()
+        arch, depth, gqa_shape = TRAIN_GQA
+        gqa_cfg = get_config(arch).replace(num_layers=depth)
+        gqa = train_kernel_vs_plain(gqa_cfg, gqa_shape, dev, reset_counts,
+                                    read_counts, {"last": -1})
+        gqa_params = sum(p.numel() for p in gqa.pop("params").parameters())
+        del gqa["start"], gqa["batch"]
+        torch.cuda.empty_cache()
+        example = train_example(reset_counts, read_counts, tmp)
+    finally:
+        shutil.rmtree(tmp)
+    if tmp.exists():
+        raise AssertionError(f"{tmp} was not removed")
+    phase_s = time.perf_counter() - t_phase
+    emit("lm_train", arch=TRAIN_ARCH, layers=cfg.num_layers,
+         d_model=cfg.d_model, heads=[cfg.num_heads, cfg.num_kv_heads],
+         head_dim=cfg.head_dim, params=n_params, dtype=cfg.dtype,
+         remat=cfg.remat, **TRAIN_SHAPE, kernel_vs_plain=run,
+         remat_none=no_remat, step_ms=step_ms,
+         tokens_per_s=b * s / step_s, model_flops=flops,
+         model_flops_share_of_bf16_peak=flops / step_s / BF16_OPS_PER_S,
+         step_profile=profile, train=resume,
+         gqa={"arch": arch, "layers": depth, "params": gqa_params,
+              **gqa_shape, **gqa},
+         example=example, grad_norm_rtol=GRAD_NORM_RTOL,
+         moment_rtol=MOMENT_RTOL, loss_atol=LOSS_ATOL, phase_s=phase_s)
+    return {"qwen_step_remat_full":
+                run["kernel"]["launches"]["flash_attention"],
+            "qwen_step_remat_none": no_remat["launches"]["flash_attention"],
+            f"{arch}_{depth}_layers_step":
+                gqa["kernel"]["launches"]["flash_attention"],
+            f"example_{example['steps']}_steps":
+                example["launches"]["flash_attention"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3760,6 +4218,10 @@ def main() -> int:
         wide_frame=wide_frame, tiled=tiled), reset_counts, read_counts, err)
     del wide_frame
 
+    # -- 20. the LM training step ---------------------------------------------
+    torch.cuda.empty_cache()
+    train_launches = phase_lm_train(dev, reset_counts, read_counts)
+
     # -- kernel table, card, result ----------------------------------------
     kernels = [
         {"name": "ph_phase_a", "route": "cuda",
@@ -3823,6 +4285,7 @@ def main() -> int:
          "moe_launches": moe_launches,
          "lm_families_launches": {arch: f["flash_launches"]
                                   for arch, f in families.items()},
+         "lm_train_launches": train_launches,
          "max_abs_err": err["flash_attention"], **fa,
          "design": DESIGN["flash_attention"]},
     ]

@@ -2,9 +2,10 @@
 
 The port's own copy of ``repro.configs.base``: the same fields, defaults and
 numbers, so a config compares equal field by field across the packages.
-The sharding and rematerialisation knobs (``scan_layers``, ``remat``,
-``seq_shard``) are carried as data; the port runs one device and eager
-layers.  ``ARCH_IDS`` lists the reference's ten architectures in its
+The port runs one device and eager layers: ``seq_shard`` is carried as
+data, ``scan_layers`` only decides which leaves the reference stacks (so
+which ones its weight decay sees as matrices, ``models/convert.py``), and
+``remat == "full"`` recomputes each block in the backward pass.  ``ARCH_IDS`` lists the reference's ten architectures in its
 order: decoders of attention, mixture-of-experts, RWKV-6 and RG-LRU
 blocks, and the Whisper encoder-decoder.
 """
@@ -49,7 +50,7 @@ class ModelConfig:
     # encoder-decoder (whisper): encoder layers + stub frontend length
     encoder_layers: int = 0
     encoder_seq: int = 0
-    # implementation knobs of the reference, carried as data
+    # implementation knobs of the reference
     wkv_impl: str = "chunked"                    # scan | chunked
     scan_layers: bool = True
     remat: str = "full"                          # none | full

@@ -125,16 +125,21 @@ def _with_positions(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
 
 def encode(params: EncDec, frames: torch.Tensor, *,
            plain: bool = False) -> torch.Tensor:
-    """frames: (B, S_enc, D) stub embeddings -> the encoder's output."""
+    """frames: (B, S_enc, D) stub embeddings -> the encoder's output.
+    Each layer is recomputed in the backward pass, as the reference's."""
     cfg = params.cfg
     spec = _spec(cfg, causal=False)
     x = _with_positions(frames, torch.arange(frames.shape[1],
                                              device=frames.device))
     for p in params.enc_blocks:
-        x = x + attention.apply_attention(p.attn, _ln(p.norm1, x), spec=spec,
-                                          plain=plain)
-        x = x + layers.mlp_apply(p.mlp, _ln(p.norm2, x), "gelu")
+        x = layers.remat(_enc_block, spec, p, x, plain=plain)
     return _ln(params.enc_final_norm, x)
+
+
+def _enc_block(spec: attention.AttnSpec, p, x, *, plain: bool = False):
+    x = x + attention.apply_attention(p.attn, _ln(p.norm1, x), spec=spec,
+                                      plain=plain)
+    return x + layers.mlp_apply(p.mlp, _ln(p.norm2, x), "gelu")
 
 
 def _dec_block(cfg: ModelConfig, p, x, enc_out=None, *, self_cache=None,
@@ -174,11 +179,13 @@ def decoder_hidden(params: EncDec, enc_out: torch.Tensor,
                    tokens: torch.Tensor, *, plain: bool = False
                    ) -> torch.Tensor:
     """The decoder over a whole sequence (teacher forcing): the hidden
-    states before the final norm, (B, S, D)."""
+    states before the final norm, (B, S, D); each layer is recomputed in
+    the backward pass, as the reference's."""
     x = _embed(params, tokens, torch.arange(tokens.shape[1],
                                             device=tokens.device))
     for p in params.dec_blocks:
-        x, _ = _dec_block(params.cfg, p, x, enc_out, plain=plain)
+        x, _ = layers.remat(_dec_block, params.cfg, p, x, enc_out,
+                            plain=plain)
     return x
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def dense_init(shape, *, generator: torch.Generator, device,
@@ -149,12 +150,34 @@ def unembed(embedding: torch.Tensor, x: torch.Tensor, *,
     return matmul_f32(x, head if head is not None else embedding.T)
 
 
+def remat(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, recomputed in the backward pass instead of
+    keeping its intermediates (the reference's ``jax.checkpoint`` with
+    nothing saveable) when autograd records; a plain call otherwise."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return fn(*args, **kwargs)
+
+
+def _xent_chunk(h, w, targets, mask, vocab_ok, z_loss: float):
+    logits = matmul_f32(h, w)
+    logits = torch.where(vocab_ok, logits, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, 1, targets[:, None])[:, 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    return torch.sum(nll * mask)
+
+
 def chunked_softmax_xent(h: torch.Tensor, w: torch.Tensor,
                          targets: torch.Tensor, mask: torch.Tensor, *,
                          valid_vocab: int, chunk: int = 4096,
                          z_loss: float = 1e-4) -> torch.Tensor:
     """Mean masked cross-entropy (+ z-loss) without materializing the
-    (tokens, V) float32 logits of the whole batch: tokens go in chunks.
+    (tokens, V) float32 logits of the whole batch: tokens go in chunks,
+    each recomputed in the backward pass (:func:`remat`), as the
+    reference's are.
 
     h: (B, S, D) final hidden states; w: (D, V) unembedding.  The last
     chunk is shorter instead of padded (padding rows carry mask 0 in the
@@ -167,12 +190,7 @@ def chunked_softmax_xent(h: torch.Tensor, w: torch.Tensor,
     vocab_ok = torch.arange(v, device=h.device) < valid_vocab
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, hf.shape[0], chunk):
-        logits = matmul_f32(hf[i:i + chunk], w)
-        logits = torch.where(vocab_ok, logits, -1e30)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, 1, tf[i:i + chunk, None])[:, 0]
-        nll = lse - gold
-        if z_loss:
-            nll = nll + z_loss * lse ** 2
-        total = total + torch.sum(nll * mf[i:i + chunk])
+        total = total + remat(_xent_chunk, hf[i:i + chunk], w,
+                              tf[i:i + chunk], mf[i:i + chunk], vocab_ok,
+                              z_loss)
     return total / torch.clamp(torch.sum(mf), min=1.0)

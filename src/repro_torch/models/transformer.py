@@ -313,11 +313,16 @@ def backbone(params: Transformer, x: torch.Tensor, *, caches=None,
              decode: bool = False, plain: bool = False):
     """Run all blocks.  Returns (x, aux_total, caches): the MoE routers'
     load-balance losses summed over layers (float32; 0 for dense
-    stacks)."""
+    stacks).  Under ``cfg.remat == "full"`` each block is recomputed in
+    the backward pass (``layers.remat``; prefill and decode record no
+    gradient, so they run the blocks once)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = params.cfg.remat == "full"
     for i, block in enumerate(params.blocks):
-        x, aux, cache = block(x, cache=None if caches is None else caches[i],
-                              decode=decode, plain=plain)
+        kw = dict(cache=None if caches is None else caches[i],
+                  decode=decode, plain=plain)
+        x, aux, cache = layers.remat(block, x, **kw) if remat \
+            else block(x, **kw)
         if aux is not None:
             aux_total = aux_total + aux
         if caches is not None:

@@ -941,3 +941,78 @@ def test_autotune_on_card_persists_cuda_entries(tmp_path):
     res = tuned.run_tiled(big)
     assert tuple(res.config.tile.grid) == grid and kc.LIBRARY.launches > 0
     _same_diagrams(res.diagram, PHEngine(cfg).run_tiled(big).diagram)
+
+
+def _smoke_train_setup(remat: str, seq: int = 128, batch: int = 2):
+    """qwen smoke at head dim 64 (the kernel's route), weights from seed
+    0 on the card, and TokenStream batch 0."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenStream
+    cfg = get_smoke_config("qwen1_5_0_5b").replace(head_dim=64, remat=remat)
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    host = TokenStream(cfg.vocab_size, seq, batch).batch_at(0)
+    return (cfg, params, ShapeConfig("train", seq, batch, "train"),
+            {k: torch.from_numpy(v).cuda() for k, v in host.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["full", "none"])
+def test_smoke_train_step_kernel_matches_plain(remat):
+    """One train step through the kernel against one through the plain
+    attention, same weights and batch (float32: the loss, grad norm and
+    first moments at 1e-4); the kernel launches twice per layer under
+    remat "full" (forward and recompute), once under "none", and the
+    plain route never."""
+    _need_cuda()
+    from repro_torch.launch import steps
+    from repro_torch.optim.adamw import AdamW
+    cfg, params, shape, batch = _smoke_train_setup(remat)
+    start = {k: p.detach().clone() for k, p in params.named_parameters()}
+    out = {}
+    for plain in (False, True):
+        with torch.no_grad():
+            for k, p in params.named_parameters():
+                p.copy_(start[k])
+        bundle = steps.train_bundle(cfg, shape, plain=plain)
+        kfa.LIBRARY.launches = 0
+        _, state, m = bundle.fn(params, AdamW().init(params), batch)
+        torch.cuda.synchronize()
+        out[plain] = (kfa.LIBRARY.launches, m, state.mu)
+    per_layer = 2 if remat == "full" else 1
+    assert out[False][0] == per_layer * cfg.num_layers and out[True][0] == 0
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(out[False][1][k], out[True][1][k],
+                                   rtol=1e-4, atol=1e-4)
+    for k, want in out[True][2].items():
+        err = float((out[False][2][k] - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), k
+
+
+@pytest.mark.cuda
+def test_async_checkpoint_holds_values_before_in_place_update(tmp_path):
+    """A save, then at once the next train step, which updates the
+    parameters in place: the checkpoint holds the values of the save."""
+    _need_cuda()
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import steps
+    from repro_torch.optim.adamw import AdamW
+    cfg, params, shape, batch = _smoke_train_setup("full")
+    opt = AdamW(lr=1e-2, warmup_steps=1)
+    state = opt.init(params)
+    bundle = steps.train_bundle(cfg, shape, opt)
+    params, state, _ = bundle.fn(params, state, batch)
+    before = {k: p.detach().cpu().clone()
+              for k, p in params.named_parameters()}
+    saver = ckpt.AsyncCheckpointer()
+    saver.save(tmp_path, 1, (params, state))
+    params, state, _ = bundle.fn(params, state, batch)
+    saver.join()
+    target = Model(cfg).init(torch.Generator(device="cuda").manual_seed(1))
+    (got, st), _, step = ckpt.restore(tmp_path, (target, opt.init(target)),
+                                      device="cpu")
+    assert step == 1 and int(st.count) == 1
+    moved = 0
+    for k, p in params.named_parameters():
+        assert torch.equal(got.get_parameter(k), before[k]), k
+        moved += not torch.equal(p.detach().cpu(), before[k])
+    assert moved > 0

@@ -287,10 +287,12 @@ def test_port_import_leaves_jax_out():
             "repro_torch.serving.server, repro_torch.serving.metrics, "
             "repro_torch.launch.ph_serve, repro_torch.roofline, "
             "repro_torch.roofline.analysis, repro_torch.roofline.autotune, "
-            "repro_torch.launch.ph_distances; "
+            "repro_torch.launch.ph_distances, repro_torch.data.tokens, "
+            "repro_torch.optim.adamw, repro_torch.checkpoint.ckpt, "
+            "repro_torch.launch.steps, repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules "
-            "if m == 'jax' or m.startswith(('jax.', 'repro.')) "
-            "or m == 'repro'); "
+            "if m in ('jax', 'repro', 'ml_dtypes') "
+            "or m.startswith(('jax.', 'repro.', 'ml_dtypes.'))); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -314,4 +316,5 @@ def test_static_scan_port_imports_neither_jax_nor_reference():
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+            assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+                f"{path}: {mod}"
