@@ -88,8 +88,11 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
              float32 and bfloat16 at ``FLASH_TOL``, then at the main
              path's shapes (``FLASH_MAIN_SHAPES``, ``FLASH_FAMILY_CALLS``:
              strided views as the model passes them, in the dtype each
-             runs in); the counts of wgmma and TMA instructions in its
-             SASS (cuobjdump); timed at the LM prefill's shape and at
+             runs in), and at query offsets (``FLASH_OFFSET_CASES``: a
+             rank's block of the query rows, ragged and windowed, in both
+             types; the last timed); the counts of wgmma and TMA
+             instructions in its SASS (cuobjdump); timed at the LM
+             prefill's shape and at
              whisper's float32 encoder call beside their bounds, in turns
              with ``scaled_dot_product_attention``;
 15. lm_serve — ``serve`` of mistral_nemo_12b at full width and depth (random
@@ -228,7 +231,28 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
              above, the grad norm and moments held (8 flash launches a
              step); ``examples/train_lm_torch.py``
              (150 steps, the last loss below the first); the temporary
-             directory removed.
+             directory removed;
+21. lm_mesh — the LM on a (1, 1) ("data", "model") mesh of one NCCL rank
+             (``launch/mesh.py``): an all-reduce, all_to_all and
+             all-gather on the group (data unchanged, NCCL kernels
+             counted); ``TRAIN_ARCH`` at ``TRAIN_SHAPE``,
+             ``MESH_TRAIN_STEPS`` steps of the sharded ``train_bundle``
+             (parameters and moments DTensors placed by the sharding
+             rules) in turns with the unsharded one from the same weights
+             and batches: loss and grad norm within ``LOSS_ATOL`` and
+             ``GRAD_NORM_RTOL`` (their differences printed), 48 flash
+             launches a step each way, step ms both ways, the peak memory,
+             one more step each way under the profiler (wall and busy ms,
+             host ops, the host ops the sharded step adds most to) and
+             its NCCL kernels; dbrx at
+             ``MOE_DEPTH``'s 8 layers: a greedy prefill (the all_to_all
+             path, one call a layer) and decode steps (the psum path)
+             against the caches ``cache_specs`` splits along the sequence,
+             tokens equal and logits within ``LOGIT_ATOL``/``LOGIT_RTOL``
+             of the same without the mesh, NCCL kernels from the profile;
+             after these timed runs, ``launch/dryrun.py``'s estimate of
+             the train cell on a fake one-rank group (its own process, on
+             the host) beside the measured peak.
 
 Every kernel is timed two ways: ``ms`` is one call's CUDA-event time
 (``cuda_ms``: the host's launch overhead falls inside the interval when it
@@ -374,6 +398,18 @@ FLASH_ENCODER_SHAPE = (4, 12, 1500, 64)
 # to the plain version by shape (phi3's 96, the smoke configs' 16) and
 # launches nothing; the kernel called directly refuses them.
 FLASH_PLAIN_ROUTE = ((2, 32, 8, 300, 96), (2, 4, 2, 64, 16))
+# The query offset (B, H, KV, Sq, Skv, hd, causal, window, q_offset): a
+# rank's block of the query rows on a mesh whose model axis splits the
+# sequence (the rows at positions q_offset ..), ragged and windowed, then
+# the timed case, lm_serve's prefill shape split two ways (the second
+# half of 1024 query rows).
+FLASH_OFFSET_CASES = ((1, 4, 2, 64, 256, 64, True, None, 192),
+                      (2, 8, 2, 128, 512, 128, True, None, 384),
+                      (1, 4, 1, 100, 300, 256, True, None, 150),
+                      (1, 4, 2, 128, 512, 128, True, 70, 300),
+                      (1, 4, 2, 130, 260, 64, True, 100, 130),
+                      (1, 2, 2, 64, 128, 128, False, None, 64),
+                      (4, 32, 8, 512, 1024, 128, True, None, 512))
 LM_ARCH = "mistral_nemo_12b"
 LM_SERVE = dict(batch=4, prompt_len=1024, gen_len=32, max_len=2048)
 LM_FORWARD = dict(batch=2, seq=2048)
@@ -480,6 +516,17 @@ TRAIN_HELD = {"qwen1_5_0_5b": ("loss", "loss_after", "grad_norm",
               "mistral_nemo_12b": ("grad_norm", "attention_moments")}
 # examples/train_lm_torch.py on the card: its own defaults.
 TRAIN_EXAMPLE_ARGS = ()
+# lm_mesh: the LM steps on a (1, 1) ("data", "model") mesh of one NCCL
+# rank.  Training: TRAIN_ARCH at TRAIN_SHAPE, MESH_TRAIN_STEPS steps of the
+# sharded train_bundle in turns with the unsharded one, from the same
+# weights and batches.  Serving: dbrx at MOE_DEPTH's depth, a prefill
+# (the all_to_all path) and greedy decode steps (the psum path, against
+# the caches split along the sequence) on the mesh against the same
+# without it.
+MESH_TRAIN_STEPS = 3
+MESH_PROFILE_TOP = 12       # host ops listed from a profiled mesh step
+MESH_SERVE_ARCH = "dbrx_132b"
+MESH_SERVE = dict(batch=4, prompt_len=512, gen_len=8, max_len=1024)
 # Profiler ranges of a train step's attention backward (the plain
 # recompute and its gradient) and optimizer update, by kind.
 TRAIN_RANGES = {"lm_train.attention_backward": "attention_backward",
@@ -934,6 +981,37 @@ def phase_flash_attention(dev, rng, err) -> dict:
                                  f"call {(name, b, h, kv, sq, skv, hd)}: max "
                                  f"|diff| {family_errs[-1]} over {tol}")
         del got, want
+    offset_errs = {}
+    for name, dt in dtypes.items():
+        tol, offset_errs[name] = FLASH_TOL[name], 0.0
+        for case in FLASH_OFFSET_CASES:
+            b, h, kv, sq, skv, hd, causal, window, off = case
+            q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(
+                "float32")).to(dt).to(dev) for shape in
+                ((b, h, sq, hd), (b, kv, skv, hd), (b, kv, skv, hd)))
+            got = kfa.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=window, q_offset=off)
+            want = rfa.attention(q, k, v, causal=causal, window=window,
+                                 q_offset=off)
+            offset_errs[name] = max(offset_errs[name],
+                                    max_abs_diff(got, want))
+            if not torch.allclose(got.float(), want.float(), atol=tol,
+                                  rtol=tol):
+                raise AssertionError(
+                    f"flash kernel != plain at q_offset ({name}, {case}): "
+                    f"max |diff| {max_abs_diff(got, want)} over {tol}")
+        errs[name] = max(errs[name], offset_errs[name])
+    b, h, kv, sq, skv, hd, _, _, off = FLASH_OFFSET_CASES[-1]
+    q, k, v = (torch.randn(b, s_, n, hd, device=dev, dtype=torch.bfloat16)
+               .transpose(1, 2) for s_, n in ((sq, h), (skv, kv), (skv, kv)))
+    offset_timed = {
+        "shape": [b, h, kv, sq, skv, hd], "q_offset": off,
+        "ms": cuda_ms(lambda: kfa.flash_attention_fwd(
+            q, k, v, causal=True, q_offset=off)),
+        "device_ms": device_ms(lambda: kfa.flash_attention_fwd(
+            q, k, v, causal=True, q_offset=off)),
+        "plain_ms": cuda_ms(lambda: rfa.attention(
+            q, k, v, causal=True, q_offset=off), reps=3)}
     err["flash_attention"] = max(errs.values())
 
     plain_route = []
@@ -985,6 +1063,8 @@ def phase_flash_attention(dev, rng, err) -> dict:
          main_shape_max_abs_err=main_errs,
          family_calls=[list(c) for c in FLASH_FAMILY_CALLS],
          family_max_abs_err=family_errs, plain_route=plain_route,
+         offset_cases=[list(c) for c in FLASH_OFFSET_CASES],
+         offset_max_abs_err=offset_errs, offset_timed=offset_timed,
          timed_shape=list(
              FLASH_SHAPE), timed_dtype="bfloat16", causal=True,
          kernel_ms=ms, device_ms=timed["device_ms"], plain_ms=plain_ms,
@@ -997,6 +1077,7 @@ def phase_flash_attention(dev, rng, err) -> dict:
     return {"ms": ms, "device_ms": timed["device_ms"], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             "library_device_ms": timed["library_device_ms"], "sass": sass,
+            "q_offset": offset_timed,
             "whisper_encoder": {k: encoder[k] for k in (
                 "shape", "dtype", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "library_device_ms")}}
@@ -2396,7 +2477,7 @@ def device_profile(fn) -> dict:
 
 
 def hidden_tile_attention(q, k, v, *, causal=True, window=None,
-                          keys=CONTROL_KEYS):
+                          q_offset=0, keys=CONTROL_KEYS):
     """The plain version with ``keys`` (by default ``CONTROL_KEYS``)
     hidden from every query: a deliberately wrong attention (a kernel
     that loses one KV tile), run as the LM phases' control."""
@@ -2406,7 +2487,8 @@ def hidden_tile_attention(q, k, v, *, causal=True, window=None,
     kvh, skv = k.shape[1], k.shape[2]
     q5 = q.reshape(b, kvh, h // kvh, sq, hd)
     s = torch.einsum("bngqd,bnkd->bngqk", q5.float(), k.float()) * hd ** -0.5
-    visible = rfa.mask(sq, skv, causal=causal, window=window, device=q.device)
+    visible = rfa.mask(sq, skv, causal=causal, window=window,
+                       q_offset=q_offset, device=q.device)
     visible[:, keys] = False
     p = torch.softmax(s.masked_fill(~visible, float("-inf")), dim=-1)
     out = torch.einsum("bngqk,bnkd->bngqd", p.to(v.dtype).float(), v.float())
@@ -3631,6 +3713,293 @@ def phase_lm_train(dev, reset_counts, read_counts) -> dict:
                 example["launches"]["flash_attention"]}
 
 
+def profiled(fn, top: int = 0) -> tuple:
+    """``fn()`` under ``torch.profiler`` (host and card): its result and
+    the run's wall ms, the card's busy ms (its kernels, copies and sets
+    summed), the NCCL kernels, the host ops' count and self ms and, with
+    ``top``, the ``top`` ops by host self ms (name: [calls, ms])."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU]
+    summary = {
+        "wall_ms": wall,
+        "device_busy_ms": sum(e.time_range.elapsed_us()
+                              for e in device) / 1e3,
+        "device_events": len(device),
+        "nccl_launches": sum(1 for e in device
+                             if "nccl" in e.name.lower()),
+        "host_ops": sum(e.count for e in host),
+        "host_self_ms": sum(e.self_cpu_time_total for e in host) / 1e3}
+    if top:
+        by_ms = sorted(host, key=lambda e: -e.self_cpu_time_total)[:top]
+        summary["host_top"] = {e.key: [e.count, e.self_cpu_time_total / 1e3]
+                               for e in by_ms}
+    return out, summary
+
+
+def _state_bytes(params, opt_state) -> int:
+    from torch.distributed.tensor import DTensor
+    tensors = list(params.parameters()) + list(opt_state.mu.values()) + \
+        list(opt_state.nu.values())
+    return sum((t.to_local() if isinstance(t, DTensor) else t).numel()
+               * t.element_size() for t in tensors)
+
+
+def mesh_train_turns(ctx, dev, reset_counts, read_counts) -> dict:
+    """``TRAIN_ARCH`` at ``TRAIN_SHAPE``: the sharded train step in turns
+    with the unsharded one, each from seed 0's weights, on the same
+    batches; per step the loss, grad norm, ms, flash launches and peak
+    memory of each; NCCL kernels of one sharded step."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import steps
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW
+
+    cfg = get_config(TRAIN_ARCH)
+    b, s = TRAIN_SHAPE["global_batch"], TRAIN_SHAPE["seq_len"]
+    shape = ShapeConfig("lm_mesh", s, b, "train")
+    opt = AdamW()
+    model = Model(cfg)
+    runs = {}
+    for name, c in (("unsharded", None), ("sharded", ctx)):
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        if c is not None:
+            params = model.shard(params, c)
+        runs[name] = {"bundle": steps.train_bundle(cfg, shape, opt, ctx=c),
+                      "state": [params, opt.init(params, c)], "steps": []}
+    resident = {n: _state_bytes(*r["state"]) for n, r in runs.items()}
+    stream = TokenStream(cfg.vocab_size, s, b)
+    for i in range(MESH_TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in stream.batch_at(i).items()}
+        order = ("unsharded", "sharded") if i % 2 == 0 else \
+            ("sharded", "unsharded")
+        for name in order:
+            run = runs[name]
+            reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params, state, m = run["bundle"].fn(*run["state"], batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            run["state"] = [params, state]
+            other = resident["sharded" if name == "unsharded"
+                             else "unsharded"]
+            run["steps"].append({
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "ms": ms,
+                "flash_launches": read_counts()["flash_attention"],
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "peak_bytes_without_other_run":
+                    torch.cuda.max_memory_allocated() - other})
+    # one more step each way under the profiler: where the host time goes
+    profiles = {}
+    for name in ("unsharded", "sharded"):
+        run = runs[name]
+        _, profiles[name] = profiled(
+            lambda: run["bundle"].fn(*run["state"], batch),
+            top=MESH_PROFILE_TOP)
+    out = {n: r["steps"] for n, r in runs.items()}
+    out["resident_state_bytes"] = resident
+    out["nccl_launches_sharded_step"] = profiles["sharded"]["nccl_launches"]
+    added = {k: [c, ms - profiles["unsharded"]["host_top"].get(
+        k, [0, 0.0])[1]] for k, (c, ms) in
+        profiles["sharded"]["host_top"].items()}
+    out["profile"] = {
+        **profiles, "host_self_ms_added_top": dict(sorted(
+            added.items(), key=lambda kv: -kv[1][1])[:MESH_PROFILE_TOP])}
+    for u, m_ in zip(out["unsharded"], out["sharded"]):
+        if abs(u["loss"] - m_["loss"]) > LOSS_ATOL or abs(
+                u["grad_norm"] - m_["grad_norm"]) > GRAD_NORM_RTOL * abs(
+                    u["grad_norm"]):
+            raise AssertionError(f"sharded step {m_} != unsharded {u}")
+        if not u["flash_launches"] == m_["flash_launches"] == \
+                2 * cfg.num_layers:
+            raise AssertionError(f"flash launches a step: {u} / {m_}")
+    out["loss_diff"] = [m_["loss"] - u["loss"] for u, m_ in
+                        zip(out["unsharded"], out["sharded"])]
+    out["grad_norm_diff"] = [m_["grad_norm"] - u["grad_norm"] for u, m_ in
+                             zip(out["unsharded"], out["sharded"])]
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve(ctx, dev, reset_counts, read_counts) -> dict:
+    """``MESH_SERVE_ARCH`` at its ``MOE_DEPTH``: a greedy prefill + decode
+    without the mesh, then the same weights placed on it (views on one
+    rank) through the all_to_all path (prefill) and the psum path
+    (decode) against the caches ``cache_specs`` splits; tokens equal,
+    logits within ``LOGIT_ATOL``/``LOGIT_RTOL``."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import serve_lm, steps
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.model import Model
+
+    depth = MOE_DEPTH[MESH_SERVE_ARCH]
+    cfg = get_config(MESH_SERVE_ARCH).replace(num_layers=depth)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    kw = MESH_SERVE
+    inputs = serve_lm.model_inputs(cfg, kw["batch"], kw["prompt_len"], 0,
+                                   dev)
+
+    def greedy(c):
+        logits, caches = model.prefill(params, steps.local_batch(inputs, c),
+                                       max_len=kw["max_len"], ctx=c)
+        outs = [logits[:, -1:]]
+        tok = torch.argmax(outs[0], -1)
+        toks = [tok]
+        for _ in range(kw["gen_len"] - 1):
+            logits, caches = model.decode_step(params, tok, caches, ctx=c)
+            outs.append(logits)
+            tok = torch.argmax(logits, -1)
+            toks.append(tok)
+        return torch.cat(outs, 1), torch.cat(toks, 1), caches
+
+    reset_counts()
+    want_logits, want_tokens, _ = greedy(None)
+    plain_flash = read_counts()["flash_attention"]
+    params = model.shard(params, ctx)
+    paths = {"a2a": 0, "psum": 0}
+    saved = {p: getattr(moe_lib, f"_{p}_path") for p in paths}
+
+    def counted(p):
+        def fn(*a, **k):
+            paths[p] += 1
+            return saved[p](*a, **k)
+        return fn
+
+    for p in paths:
+        setattr(moe_lib, f"_{p}_path", counted(p))
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (logits, tokens, caches), prof = profiled(lambda: greedy(ctx))
+        ms = (time.perf_counter() - t0) * 1e3
+        flash = read_counts()["flash_attention"]
+    finally:
+        for p, fn in saved.items():
+            setattr(moe_lib, f"_{p}_path", fn)
+    diff = (logits.float() - want_logits.float()).abs()
+    limit = LOGIT_ATOL + LOGIT_RTOL * want_logits.float().abs()
+    out = {"arch": MESH_SERVE_ARCH, "layers": depth, **kw,
+           "tokens_equal": bool(torch.equal(tokens, want_tokens)),
+           "logits_bitwise_equal": bool(torch.equal(logits, want_logits)),
+           "logit_max_abs_diff": float(diff.max()),
+           "logit_tol_ratio": float((diff / limit).max()),
+           "paths": paths, "flash_launches": flash,
+           "unsharded_flash_launches": plain_flash,
+           "nccl_launches": prof["nccl_launches"], "mesh_ms_profiled": ms,
+           "cache_spec_k": list(sharding.cache_specs(
+               caches, ctx)[0]["k"]),
+           "cache_slots": [caches[0].k.shape[1], caches[0].start],
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    if not out["tokens_equal"] or out["logit_tol_ratio"] > 1.0:
+        raise AssertionError(f"mesh serve != unsharded: {out}")
+    if paths != {"a2a": depth, "psum": depth * (kw["gen_len"] - 1)} or \
+            flash != depth or plain_flash != depth:
+        raise AssertionError(f"routes or launches: {out}")
+    del params, caches, logits, want_logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_mesh(dev, reset_counts, read_counts) -> dict:
+    """Phase 21: the LM on a (1, 1) mesh of one NCCL rank: collectives on
+    the group, the sharded train step against the unsharded one
+    (``mesh_train_turns``) beside ``launch/dryrun.py``'s estimate of the
+    same cell (a fake process group in its own process, no card), and
+    the MoE decoder's mesh serve (``mesh_serve``).  Returns the flash
+    launches by run."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import parallel
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    try:
+        mesh_lib.init_process_group()
+        ctx = mesh_lib.make_small_context(1, 1)
+        if dist.get_backend() != "nccl" or ctx.mesh.device_type != "cuda":
+            raise AssertionError(f"mesh on {dist.get_backend()}")
+        group = ctx.group("model")
+
+        def collectives():
+            x = torch.arange(8.0, device=dev)
+            dist.all_reduce(x, group=group)
+            out = torch.empty_like(x)
+            dist.all_to_all_single(out, x, group=group)
+            gathered = torch.empty(8, device=dev)
+            dist.all_gather_into_tensor(gathered, x, group=group)
+            return out, gathered, x
+
+        (a2a, gathered, reduced), coll = profiled(collectives)
+        ref = torch.arange(8.0, device=dev)
+        if not (torch.equal(a2a, ref) and torch.equal(gathered, ref)
+                and torch.equal(reduced, ref)):
+            raise AssertionError("one-rank collectives changed the data")
+        if parallel.group_size(group) != 1:
+            raise AssertionError("the (1, 1) mesh's group is not one rank")
+        train = mesh_train_turns(ctx, dev, reset_counts, read_counts)
+        serve = mesh_serve(ctx, dev, reset_counts, read_counts)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    # dryrun's estimate of the train cell, after the timed runs (its CPU
+    # trace would contend with their host work)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    dry_path = build / "lm_mesh_dryrun.json"
+    dry_path.unlink(missing_ok=True)
+    dry = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         TRAIN_ARCH, "--shape", "train_4k", "--device", "cpu",
+         "--global-batch", str(TRAIN_SHAPE["global_batch"]), "--out",
+         str(dry_path)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 CUDA_VISIBLE_DEVICES="", REPRO_DRYRUN_DEVICES="1"),
+        capture_output=True, text=True, timeout=900)
+    if dry.returncode != 0:
+        raise AssertionError(f"dryrun failed: {dry.stderr[-3000:]}")
+    estimate = json.loads(dry_path.read_text())
+    sharded_peak = max(s["peak_bytes_without_other_run"]
+                       for s in train["sharded"])
+    phase_s = time.perf_counter() - t_phase
+    emit("lm_mesh", mesh=[1, 1], backend="nccl",
+         collectives_nccl_launches=coll["nccl_launches"], train=train,
+         dryrun={"mesh": estimate["mesh"], "memory": estimate["memory"],
+                 "flops": estimate["flops"],
+                 "collectives": estimate["collectives"],
+                 "roofline": estimate["roofline"],
+                 "seconds": estimate["seconds"]},
+         dryrun_peak_over_measured=estimate["memory"]["peak_bytes"]
+         / sharded_peak, measured_sharded_peak_bytes=sharded_peak,
+         serve=serve, phase_s=phase_s)
+    return {"qwen_sharded_step": train["sharded"][0]["flash_launches"],
+            f"{MESH_SERVE_ARCH}_{serve['layers']}_layers_prefill":
+                serve["flash_launches"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4222,6 +4591,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches = phase_lm_train(dev, reset_counts, read_counts)
 
+    # -- 21. the LM on a one-rank mesh -----------------------------------------
+    torch.cuda.empty_cache()
+    mesh_launches = phase_lm_mesh(dev, reset_counts, read_counts)
+
     # -- kernel table, card, result ----------------------------------------
     kernels = [
         {"name": "ph_phase_a", "route": "cuda",
@@ -4286,6 +4659,7 @@ def main() -> int:
          "lm_families_launches": {arch: f["flash_launches"]
                                   for arch, f in families.items()},
          "lm_train_launches": train_launches,
+         "lm_mesh_launches": mesh_launches,
          "max_abs_err": err["flash_attention"], **fa,
          "design": DESIGN["flash_attention"]},
     ]

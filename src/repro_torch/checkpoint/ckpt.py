@@ -21,6 +21,15 @@ them.  ``AsyncCheckpointer`` then serializes on a worker thread.
 ``restore`` puts each leaf on ``device`` (by default the target leaf's),
 so a checkpoint written on the card restores onto the host and back;
 ``read`` needs no target and returns numpy arrays.
+
+On an LM mesh the leaves are DTensors: a save gathers each whole tensor,
+leaf by leaf (every rank takes part), and one rank (rank 0 of the
+process group) copies it to host memory and writes it, as the reference
+stores unsharded arrays; the other ranks drop their gathered copy at
+once and keep nothing on the host.  The ranks then wait for the files.
+``restore`` into DTensor leaves keeps each rank's block of the stored
+tensor under the target's placements, so a checkpoint written on one
+mesh restores onto any other.
 """
 from __future__ import annotations
 
@@ -77,6 +86,23 @@ def _rebuild(tree, leaf_fn, path: tuple = ()):
     return leaf_fn(_key(path), tree)
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _writer() -> bool:
+    """Whether this process writes (rank 0, or no process group)."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def _host(leaf) -> tuple[np.ndarray, str]:
     """A copy of ``leaf`` in host memory and its dtype's numpy name
     (bfloat16 as its uint16 bits)."""
@@ -90,14 +116,27 @@ def _host(leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def _to_host(tree) -> list:
-    return [(_key(path), *_host(leaf)) for path, leaf in _items(tree)]
+def _to_host(tree) -> list | None:
+    """The writer's host copy of every leaf, a DTensor gathered whole one
+    leaf at a time; ``None`` on the other ranks, which take part in each
+    gather and keep nothing."""
+    writer = _writer()
+    host = []
+    for path, leaf in _items(tree):
+        if _is_dtensor(leaf):
+            leaf = leaf.full_tensor()
+        if writer:
+            host.append((_key(path), *_host(leaf)))
+    return host if writer else None
 
 
 def save(ckpt_dir, step: int, tree, *, metadata: dict | None = None,
          keep: int = 3) -> None:
     """Synchronous checkpoint write (atomic)."""
-    _write(Path(ckpt_dir), step, _to_host(tree), metadata or {}, keep)
+    host = _to_host(tree)
+    if host is not None:
+        _write(Path(ckpt_dir), step, host, metadata or {}, keep)
+    _barrier()
 
 
 class AsyncCheckpointer:
@@ -110,6 +149,8 @@ class AsyncCheckpointer:
     def save(self, ckpt_dir, step: int, tree, *, metadata=None, keep=3):
         host = _to_host(tree)
         self.join()
+        if host is None:
+            return
         self._thread = threading.Thread(
             target=_write,
             args=(Path(ckpt_dir), step, host, metadata or {}, keep),
@@ -117,9 +158,11 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def join(self) -> None:
+        """Wait for the last write (on a mesh every rank waits for it)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier()
 
 
 def _write(root: Path, step: int, host: list, metadata: dict,
@@ -209,9 +252,19 @@ def restore(ckpt_dir, target, *, step: int | None = None, device=None):
             raise KeyError(f"checkpoint missing leaf {key!r}")
         t = _tensor(np.load(d / meta["file"], allow_pickle=False),
                     meta["dtype"])
-        if list(t.shape) != list(np.shape(leaf)):
+        want = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) \
+            else np.shape(leaf)
+        if tuple(t.shape) != tuple(want):
             raise ValueError(f"shape mismatch for {key}: "
-                             f"{tuple(t.shape)} vs {tuple(np.shape(leaf))}")
+                             f"{tuple(t.shape)} vs {tuple(want)}")
+        if _is_dtensor(leaf):
+            from torch.distributed.tensor import DTensor
+            from repro_torch.distributed.sharding import local_shard
+            local = local_shard(t, leaf.placements, leaf.device_mesh)
+            return DTensor.from_local(
+                local.to(leaf.to_local().device),
+                leaf.device_mesh, leaf.placements, run_check=False,
+                shape=t.shape, stride=t.stride())
         dev = device if device is not None else (
             leaf.device if isinstance(leaf, torch.Tensor) else "cpu")
         return t.to(dev)

@@ -2,10 +2,13 @@
 
 The port's own copy of ``repro.configs.base``: the same fields, defaults and
 numbers, so a config compares equal field by field across the packages.
-The port runs one device and eager layers: ``seq_shard`` is carried as
-data, ``scan_layers`` only decides which leaves the reference stacks (so
-which ones its weight decay sees as matrices, ``models/convert.py``), and
-``remat == "full"`` recomputes each block in the backward pass.  ``ARCH_IDS`` lists the reference's ten architectures in its
+The port runs eager layers: ``seq_shard`` splits the residual stream
+along the sequence at the layer boundary on an LM mesh,
+``scan_layers`` only decides which leaves the reference stacks (so which
+ones its weight decay and its sharding rules see with a layer axis,
+``models/convert.py``, ``distributed/sharding.py``), and ``remat ==
+"full"`` recomputes each block in the backward pass.  ``cells`` lists the
+dry-run's (arch, shape) cells (``launch/dryrun.py``).  ``ARCH_IDS`` lists the reference's ten architectures in its
 order: decoders of attention, mixture-of-experts, RWKV-6 and RG-LRU
 blocks, and the Whisper encoder-decoder.
 """
@@ -121,3 +124,19 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
+
+
+def cells(archs=None, shapes=None):
+    """All (arch, shape) dry-run cells with the reference's sanctioned
+    skips: ``(arch, shape, skip reason or None)``."""
+    out = []
+    for a in archs or ARCH_IDS:
+        cfg = get_config(a)
+        for s in shapes or SHAPES:
+            skip = None
+            if SHAPES[s].name == "long_500k" and \
+                    not cfg.supports_long_context:
+                skip = ("full-attention arch: 500k dense KV pass is "
+                        "quadratic; skipped as in the reference")
+            out.append((a, s, skip))
+    return out

@@ -89,25 +89,32 @@ struct Params {
   int B, H, KV, Sq, Skv;
   int causal;
   int window;                                    // <= 0: no window
+  int q_off;                                     // position of query row 0
   float scale;
 };
 
 // The KV tiles [begin, end) that some row of the query tile at q0 sees.
+// Row r sits at position r + q_off (a query block of a longer sequence);
+// keys sit at 0 .. Skv - 1.  The kernels take q_off as 0 at compile time
+// unless the launch has one (kOff), so a whole sequence runs the code of
+// a kernel without the offset.
 template <int BM, int BN>
-__device__ __forceinline__ int2 kv_tiles(const Params& p, int q0) {
-  const int q_last = min(q0 + BM, p.Sq) - 1;
+__device__ __forceinline__ int2 kv_tiles(const Params& p, int q0,
+                                         int q_off) {
+  const int q_last = min(q0 + BM, p.Sq) - 1 + q_off;
   int end = (p.Skv + BN - 1) / BN;
-  if (p.causal) end = min(end, q_last / BN + 1);
+  if (p.causal) end = max(min(end, q_last / BN + 1), 0);
   int begin = 0;
-  if (p.window > 0 && q0 - p.window + 1 > 0)
-    begin = (q0 - p.window + 1) / BN;
+  if (p.window > 0 && q0 + q_off - p.window + 1 > 0)
+    begin = (q0 + q_off - p.window + 1) / BN;
   return make_int2(begin, end);
 }
 
-__device__ __forceinline__ bool visible(const Params& p, int qr, int kc) {
+// Key kc against the query at position pos.
+__device__ __forceinline__ bool visible(const Params& p, int pos, int kc) {
   bool vis = kc < p.Skv;
-  if (p.causal) vis = vis && kc <= qr;
-  if (p.window > 0) vis = vis && kc > qr - p.window;
+  if (p.causal) vis = vis && kc <= pos;
+  if (p.window > 0) vis = vis && kc > pos - p.window;
   return vis;
 }
 
@@ -408,7 +415,7 @@ struct WgCfg {
       1024 + kQBytes + 2 * kStages * kTileBytes + kBarriers * 8;
 };
 
-template <int HD>
+template <int HD, bool kOff>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
@@ -437,7 +444,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int h = bh % p.H;
   const int b = bh / p.H;
   const int kvh = h / (p.H / p.KV);
-  const int2 tiles = kv_tiles<BM, BN>(p, q0);
+  const int q_off = kOff ? p.q_off : 0;
+  const int2 tiles = kv_tiles<BM, BN>(p, q0, q_off);
   const int n_tiles = max(tiles.y - tiles.x, 0);
 
   if (threadIdx.x == 0) {
@@ -497,8 +505,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   // No row of this warpgroup sees tile i: its steps only wait and release.
   auto none = [&](int i) {
     const int k0 = (tiles.x + i) * BN;
-    return r_lo >= p.Sq || (p.causal && k0 > r_lo + 63) ||
-           (p.window > 0 && k0 + BN - 1 <= r_lo - p.window);
+    return r_lo >= p.Sq || (p.causal && k0 > r_lo + q_off + 63) ||
+           (p.window > 0 && k0 + BN - 1 <= r_lo + q_off - p.window);
   };
 
   float o[HD / 2];
@@ -547,7 +555,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        if (masked && !visible(p, row + (e >> 1) * 8,
+        if (masked && !visible(p, row + q_off + (e >> 1) * 8,
                                k0 + 8 * j + 2 * qd + (e & 1)))
           sc[4 * j + e] = -INFINITY;
         mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
@@ -579,8 +587,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int k0 = (tiles.x + i) * BN;
     // Every row sees every key of the tile: no per-element mask.
     const bool full = k0 + BN <= p.Skv &&
-                      (!p.causal || k0 + BN - 1 <= r_lo) &&
-                      (p.window <= 0 || k0 > r_lo + 63 - p.window);
+                      (!p.causal || k0 + BN - 1 <= r_lo + q_off) &&
+                      (p.window <= 0 || k0 > r_lo + q_off + 63 - p.window);
     if (full)
       softmax_tile(std::false_type(), i);
     else
@@ -707,7 +715,7 @@ constexpr int f32_smem_bytes() {
           kBlockQ * kBlockK) * 4;
 }
 
-template <int HD>
+template <int HD, bool kOff>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32_kernel(const Params p) {
   constexpr int KP = HD + 4;          // padded K row: conflict-free float4
@@ -749,7 +757,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < DJ; ++j) acc[rr][j] = 0.f;
   }
 
-  const int2 tiles = kv_tiles<kBlockQ, kBlockK>(p, q0);
+  const int q_off = kOff ? p.q_off : 0;
+  const int2 tiles = kv_tiles<kBlockQ, kBlockK>(p, q0, q_off);
   for (int kt = tiles.x; kt < tiles.y; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();                  // the previous tile is consumed
@@ -793,8 +802,8 @@ __global__ void __launch_bounds__(kThreads)
       float sc[2];
 #pragma unroll
       for (int c = 0; c < 2; ++c)
-        sc[c] = visible(p, qr, k0 + lane + 32 * c) ? s[rr][c] * p.scale
-                                                   : -INFINITY;
+        sc[c] = visible(p, qr + q_off, k0 + lane + 32 * c)
+                    ? s[rr][c] * p.scale : -INFINITY;
       const float m_new = fmaxf(m[rr], warp_max(fmaxf(sc[0], sc[1])));
       float p0 = 0.f, p1 = 0.f, corr = 1.f;
       if (m_new != -INFINITY) {
@@ -924,27 +933,29 @@ cudaError_t launch_wgmma(const Params& p, int B, cudaStream_t st) {
                      C::BN);
     if (err != cudaSuccess) return err;
   }
-  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<HD>,
+  auto kernel = p.q_off ? flash_fwd_wgmma_kernel<HD, true>
+                        : flash_fwd_wgmma_kernel<HD, false>;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              C::kSmemBytes);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)((p.Sq + C::BM - 1) / C::BM) * p.H * B;
   if (blocks >= (1ll << 31)) return cudaErrorInvalidValue;
-  flash_fwd_wgmma_kernel<HD><<<(unsigned)blocks, kWgThreads, C::kSmemBytes,
-                               st>>>(
-      tq, tk, tv, to, p);
+  kernel<<<(unsigned)blocks, kWgThreads, C::kSmemBytes, st>>>(tq, tk, tv, to,
+                                                               p);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_f32(const Params& p, int B, cudaStream_t st) {
   const int bytes = f32_smem_bytes<HD>();
+  auto kernel = p.q_off ? flash_fwd_f32_kernel<HD, true>
+                        : flash_fwd_f32_kernel<HD, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + kBlockQ - 1) / kBlockQ, p.H, B);
-  flash_fwd_f32_kernel<HD><<<grid, kThreads, bytes, st>>>(p);
+  kernel<<<grid, kThreads, bytes, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -960,15 +971,17 @@ cudaError_t launch_hd(int dtype, const Params& p, int B, cudaStream_t st) {
 // that order; the head dim is contiguous (bfloat16: base and strides
 // 16-byte aligned, TMA's rule).
 // q (B, H, Sq, hd), k/v (B, KV, Skv, hd), o (B, H, Sq, hd).  window <= 0
-// means none.
+// means none.  q_off >= 0: query row r sits at position r + q_off.
 extern "C" int flash_attention_fwd_launch(int dtype, int hd, const void* q,
                                           const void* k, const void* v,
                                           void* o, const long long* strides,
                                           int B, int H, int KV, int Sq,
                                           int Skv, int causal, int window,
-                                          float scale, void* stream) {
+                                          int q_off, float scale,
+                                          void* stream) {
   if (B == 0 || H == 0 || Sq == 0) return 0;
-  if (KV <= 0 || H % KV != 0 || Skv < 0 || (dtype != 0 && dtype != 1))
+  if (KV <= 0 || H % KV != 0 || Skv < 0 || q_off < 0 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -994,6 +1007,7 @@ extern "C" int flash_attention_fwd_launch(int dtype, int hd, const void* q,
   p.Skv = Skv;
   p.causal = causal;
   p.window = window;
+  p.q_off = q_off;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {

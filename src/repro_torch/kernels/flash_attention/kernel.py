@@ -23,7 +23,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary(
     Path(__file__).parent / "csrc" / "flash_attention.cu",
     {"flash_attention_fwd_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _I, _I, ctypes.c_float, _P]},
+                                    _I, _I, _I, _I, _I, ctypes.c_float,
+                                    _P]},
     error_fn="flash_attention_error_string")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -69,11 +70,13 @@ def tma_addressable(t: torch.Tensor) -> bool:
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: int | None = None
-                        ) -> torch.Tensor:
+                        causal: bool = True, window: int | None = None,
+                        q_offset: int = 0) -> torch.Tensor:
     """Flash attention forward on the card.  q: (B, H, Sq, hd); k, v:
-    (B, KV, Skv, hd).  Returns (B, H, Sq, hd), a view of a
-    (B, Sq, H, hd) tensor, so the model's head merge is free."""
+    (B, KV, Skv, hd); query row ``i`` sits at position ``i + q_offset``
+    (a block of a longer query sequence), the keys at 0 .. Skv - 1.
+    Returns (B, H, Sq, hd), a view of a (B, Sq, H, hd) tensor, so the
+    model's head merge is free."""
     _check(q, k, v)
     if q.dtype == torch.bfloat16:
         q, k, v = (t if tma_addressable(t)
@@ -83,6 +86,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kvh, skv = k.shape[1], k.shape[2]
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
+    if not 0 <= q_offset < 2 ** 31 - sq:
+        raise ValueError(f"q_offset must be in [0, 2**31 - Sq), got "
+                         f"{q_offset}")
     out = torch.empty((b, sq, h, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(
@@ -92,7 +98,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         LIBRARY.call("flash_attention_fwd_launch", DTYPE_CODES[q.dtype], hd,
                      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      strides, b, h, kvh, sq, skv, int(causal),
-                     0 if window is None else int(window), hd ** -0.5,
-                     stream)
+                     0 if window is None else int(window), int(q_offset),
+                     hd ** -0.5, stream)
     LIBRARY.launches += 1
     return out

@@ -1,6 +1,11 @@
 """**Language-model** serving: prefill + greedy decode over one batch.
 
-Counterpart of ``repro.launch.serve_lm`` on one device.  The weights are
+Counterpart of ``repro.launch.serve_lm``.  As the reference's, it runs
+on an LM mesh of the running process group when it has several ranks
+(``make_small_context(data=world, model=1)``), or on the caller's
+``ctx``; each rank then prefills and decodes its share of the batch
+against its block of the caches and the tokens are gathered at the end.
+Without a process group (or with one rank) it runs on one device.  The weights are
 random, drawn on the model's device from a ``torch.Generator`` seeded
 with ``seed`` (a 12 B-parameter model is never drawn on the host), unless
 the caller hands in built ``params``; the prompts are drawn with numpy
@@ -30,8 +35,11 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import get_config, get_smoke_config
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.steps import gather_batch, local_batch
 from repro_torch.models.model import Model
 
 
@@ -72,16 +80,20 @@ def _sync(device: torch.device) -> None:
 
 def serve(arch: str, *, smoke: bool = True, batch: int = 4,
           prompt_len: int = 32, gen_len: int = 32, max_len: int = 128,
-          seed: int = 0, device=None, params=None, verbose: bool = True):
+          seed: int = 0, device=None, params=None, verbose: bool = True,
+          ctx=None):
     """Prefill ``batch`` random prompts and decode ``gen_len`` tokens
     greedily.  Returns (tokens (batch, gen_len) numpy, stats)."""
+    if ctx is None and dist.is_initialized() and dist.get_world_size() > 1:
+        ctx = mesh_lib.make_small_context(data=dist.get_world_size(),
+                                          model=1)
     cfg = params.cfg if params is not None else \
         (get_smoke_config if smoke else get_config)(arch)
     if prompt_len + gen_len - 1 > max_len:
         raise ValueError(f"prompt_len + gen_len - 1 = "
                          f"{prompt_len + gen_len - 1} exceeds max_len "
                          f"{max_len}")
-    model = Model(cfg, device=device)
+    model = Model(cfg, device=device if ctx is None else ctx.device)
     dev = model.device
     stats = {"arch": cfg.name, "device": str(dev), "batch": batch,
              "prompt_len": prompt_len, "gen_len": gen_len,
@@ -92,11 +104,15 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
         params = model.init(gen)
         _sync(dev)
         stats["init_s"] = time.perf_counter() - t0
+    if ctx is not None:
+        params = model.shard(params, ctx)
+        stats["mesh"] = ctx.shape
 
-    inputs = model_inputs(cfg, batch, prompt_len, seed, dev)
+    inputs = local_batch(model_inputs(cfg, batch, prompt_len, seed, dev),
+                         ctx)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = model.prefill(params, inputs, max_len=max_len)
+    logits, caches = model.prefill(params, inputs, max_len=max_len, ctx=ctx)
     next_tok = torch.argmax(logits[:, -1:], -1)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -104,18 +120,21 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     out_tokens = [next_tok]
     t0 = time.perf_counter()
     for _ in range(gen_len - 1):
-        logits, caches = model.decode_step(params, next_tok, caches)
+        logits, caches = model.decode_step(params, next_tok, caches, ctx=ctx)
         next_tok = torch.argmax(logits, -1)
         out_tokens.append(next_tok)
     _sync(dev)
     t_decode = time.perf_counter() - t0
 
-    gen = torch.cat(out_tokens, dim=1).cpu().numpy().astype(np.int32)
+    gen = torch.cat(out_tokens, dim=1)
+    if ctx is not None and inputs["tokens"].shape[0] != batch:
+        gen = gather_batch(gen, ctx)
+    gen = gen.cpu().numpy().astype(np.int32)
     stats.update(prefill_ms=t_prefill * 1e3,
                  decode_tokens_per_s=batch * (gen_len - 1)
                  / max(t_decode, 1e-9),
                  sample_output=gen[0][:16].tolist())
-    if verbose:
+    if verbose and (ctx is None or dist.get_rank() == 0):
         print(json.dumps(stats, indent=1))
     return gen, stats
 

@@ -20,8 +20,18 @@ Layout conventions: activations (B, S, D); q/k/v (B, S, H, hd); KV caches
 (B, S_max, Hkv, hd).  Unlike the reference's functional caches, a
 :class:`KVCache` is updated in place (prefill writes the prompt's keys and
 values, decode writes one slot and advances ``length``), so a decode step
-allocates no new cache.  One device: the reference's sharding
-constraints (``_constrain_qkv``, ``ctx``) are not carried over.
+allocates no new cache.
+
+On an LM mesh (a ``parallel.Layout``) each rank runs its share, with the
+reference's layout of q/k/v (``_constrain_qkv``): the heads over
+``model`` when its size divides the query heads (K/V heads too when it
+divides them; otherwise each rank takes the KV heads its q heads read),
+else the query sequence over ``model`` against replicated K/V, the rank's
+rows at their offset in the sequence (``q_offset``).  The flash op only
+ever sees local tensors.  A KV cache there holds the rank's block of the
+positions (``cache_specs``: the sequence over ``model``); decode writes a
+token on the rank that owns its slot and combines the ranks' partial
+softmaxes with all-reduces (flash-decoding).
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.distributed import parallel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers
 
@@ -51,6 +62,8 @@ class KVCache:
     k: torch.Tensor      # (B, S_max, Hkv, hd)
     v: torch.Tensor
     length: int          # tokens written so far
+    start: int = 0       # on a mesh: the first slot this rank holds
+    group: object = None  # on a mesh: the ranks that split the slots
 
 
 def attention_shapes(spec: AttnSpec) -> dict:
@@ -79,12 +92,8 @@ def _project_q(p, x, positions, spec: AttnSpec):
     return q
 
 
-def _project_qkv(p, x, positions, spec: AttnSpec, kv_src=None,
-                 kv_positions=None):
-    """q from ``x``; k, v from ``kv_src`` (cross-attention, its keys at
-    ``kv_positions``) or ``x``."""
-    b = x.shape[0]
-    kv_in = x if kv_src is None else kv_src
+def _project_kv(p, kv_in, positions, spec: AttnSpec):
+    b = kv_in.shape[0]
     k = layers.matmul(kv_in, p["wk"])
     v = layers.matmul(kv_in, p["wv"])
     if spec.qkv_bias:
@@ -94,16 +103,27 @@ def _project_qkv(p, x, positions, spec: AttnSpec, kv_src=None,
     if spec.qk_norm:
         k = layers.rmsnorm(p["k_norm"]["scale"], k)
     if spec.rope_theta is not None:
-        k = layers.rope(k, positions if kv_positions is None
-                        else kv_positions, theta=spec.rope_theta)
+        k = layers.rope(k, positions, theta=spec.rope_theta)
+    return k, v
+
+
+def _project_qkv(p, x, positions, spec: AttnSpec, kv_src=None,
+                 kv_positions=None):
+    """q from ``x``; k, v from ``kv_src`` (cross-attention, its keys at
+    ``kv_positions``) or ``x``."""
+    k, v = _project_kv(p, x if kv_src is None else kv_src,
+                       positions if kv_positions is None else kv_positions,
+                       spec)
     return _project_q(p, x, positions, spec), k, v
 
 
 def blockwise_attention(q, k, v, *, causal: bool, window: int | None,
-                        plain: bool = False) -> torch.Tensor:
+                        plain: bool = False, q_offset: int = 0
+                        ) -> torch.Tensor:
     """Full-sequence attention, q: (B, Sq, H, hd), k/v: (B, Skv, Hkv, hd),
-    positions 0..S-1.  The flash op takes the (B, heads, S, hd) views of
-    the same memory; its output view transposes back without a copy.
+    the queries at positions ``q_offset`` .. and the keys at 0 ...  The
+    flash op takes the (B, heads, S, hd) views of the same memory; its
+    output view transposes back without a copy.
     q, k and v of two dtypes go in at their promoted dtype, and the
     output comes back in v's dtype, as the reference's does."""
     out_dtype = v.dtype
@@ -111,7 +131,7 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int | None,
     q, k, v = (t.to(dt) for t in (q, k, v))
     out = fa_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), causal, window,
-                                 plain=plain)
+                                 q_offset=q_offset, plain=plain)
     return out.transpose(1, 2).to(out_dtype)
 
 
@@ -125,10 +145,14 @@ def _attend_and_project(p, q, k, v, spec: AttnSpec, plain: bool,
 
 
 def apply_attention(p, x, *, spec: AttnSpec, kv_src=None,
-                    plain: bool = False) -> torch.Tensor:
+                    plain: bool = False, lay=None) -> torch.Tensor:
     """Full-sequence attention (training / forward without cache): self-
     attention, or with ``kv_src`` (B, S_src, D) non-causal
-    cross-attention over the source, its keys at positions 0..S_src-1."""
+    cross-attention over the source, its keys at positions 0..S_src-1.
+    With ``lay`` (self-attention on a mesh) ``x`` is the rank's residual
+    stream and so is the result."""
+    if lay is not None:
+        return _mesh_attention(p, x, spec, lay, plain)[0]
     positions = torch.arange(x.shape[1], device=x.device)
     kv_positions = None if kv_src is None else torch.arange(
         kv_src.shape[1], device=x.device)
@@ -143,39 +167,113 @@ def cache_len(max_len: int, spec: AttnSpec) -> int:
 
 
 def init_cache(batch: int, max_len: int, spec: AttnSpec, *, dtype,
-               device) -> KVCache:
-    shape = (batch, cache_len(max_len, spec), spec.num_kv_heads,
-             spec.head_dim)
+               device, lay=None) -> KVCache:
+    """Zeros for ``batch`` sequences; with ``lay`` this rank's block of the
+    slots where ``cache_specs`` splits them over ``model``."""
+    c = cache_len(max_len, spec)
+    start, group = 0, None
+    if lay is not None and lay.tp > 1:
+        from repro_torch.distributed.sharding import cache_leaf_spec
+        ctx = lay.ctx
+        if cache_leaf_spec("k", (batch, c, spec.num_kv_heads,
+                                 spec.head_dim), ctx, tp=ctx.tp_axis,
+                           dp_axes=ctx.dp_axes)[1] is not None:
+            c //= lay.tp
+            start, group = lay.tp_rank * c, lay.tp_group
+    shape = (batch, c, spec.num_kv_heads, spec.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device), 0)
+                   torch.zeros(shape, dtype=dtype, device=device), 0,
+                   start, group)
+
+
+def _slots(cache: KVCache) -> int:
+    """The cache's whole length over the ranks that split it."""
+    return cache.k.shape[1] * parallel.group_size(cache.group)
 
 
 def prefill_attention(p, x, cache: KVCache, *, spec: AttnSpec,
-                      plain: bool = False
+                      plain: bool = False, lay=None
                       ) -> tuple[torch.Tensor, KVCache]:
     """Full attention over a prompt, writing (the tail of) K/V into the
     cache in place.
 
     Ring caches (local-window layers) keep the last `cache_len` tokens, each
     stored at slot ``abs_pos % cache_len`` so decode writes stay aligned.
+    On a mesh each rank writes its block of the slots.
     """
-    s = x.shape[1]
-    positions = torch.arange(s, device=x.device)
+    if lay is not None:
+        y, k, v = _mesh_attention(p, x, spec, lay, plain, want_kv=True)
+        _write_prompt(cache, k, v)
+        return y, cache
+    positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = _project_qkv(p, x, positions, spec)
-    c = cache.k.shape[1]
+    _write_prompt(cache, k, v)
+    return _attend_and_project(p, q, k, v, spec, plain, spec.causal), cache
+
+
+def _write_prompt(cache: KVCache, k, v) -> None:
+    """The prompt's K/V (B, S, KV, hd, every position) into the cache: its
+    last ``slots`` tokens, each at slot ``pos % slots``; on a mesh the
+    rank writes the block of slots it holds (``cache.start`` on)."""
+    s = k.shape[1]
+    c = _slots(cache)
     ktail, vtail = k[:, -c:], v[:, -c:]
     if s >= c and s % c:
         ktail = torch.roll(ktail, s % c, dims=1)
         vtail = torch.roll(vtail, s % c, dims=1)
-    n = ktail.shape[1]
-    cache.k[:, :n].copy_(ktail)
-    cache.v[:, :n].copy_(vtail)
+    lo = cache.start
+    hi = min(lo + cache.k.shape[1], ktail.shape[1])
+    if hi > lo:
+        cache.k[:, :hi - lo].copy_(ktail[:, lo:hi])
+        cache.v[:, :hi - lo].copy_(vtail[:, lo:hi])
     cache.length = s
-    return _attend_and_project(p, q, k, v, spec, plain, spec.causal), cache
+
+
+def _write_token(cache: KVCache, k, v, window: int | None):
+    """One token's K/V (B, 1, KV, hd) at position ``cache.length`` into its
+    slot, on the rank that holds it; advances ``length``.  Returns this
+    rank's filled slots (keys, values)."""
+    pos, c, cl = cache.length, _slots(cache), cache.k.shape[1]
+    if window is None and pos >= c:
+        raise ValueError(f"KV cache of {c} tokens is full")
+    at = pos % c - cache.start
+    if 0 <= at < cl:
+        cache.k[:, at:at + 1].copy_(k)
+        cache.v[:, at:at + 1].copy_(v)
+    cache.length = pos + 1
+    n = max(0, min(min(pos + 1, c) - cache.start, cl))
+    return cache.k[:, :n], cache.v[:, :n]
+
+
+def _attend_cache(q, keys, vals, spec: AttnSpec, group=None):
+    """One query token (B, 1, H, hd) against cached keys and values (B, n,
+    KV, hd), GQA-grouped without repeating K/V: float32 scores, the
+    probabilities cast to the values' dtype before the product.  With
+    ``group`` the ranks hold disjoint blocks of the slots and their
+    partial softmaxes combine (the maxima, then the sums of the weights
+    and of the weighted values).  Returns (B, 1, H * hd) float32."""
+    b, nkv, hd = q.shape[0], spec.num_kv_heads, spec.head_dim
+    g = spec.num_heads // nkv
+    q5 = q.reshape(b, nkv, g, hd)
+    sc = torch.einsum("bngd,bknd->bngk", q5.float(), keys.float())
+    sc = sc * hd ** -0.5                               # (B, KV, G, n)
+    if group is None:
+        w = torch.softmax(sc, dim=-1)
+    else:
+        m = sc.amax(-1) if keys.shape[1] else torch.full(
+            sc.shape[:-1], float("-inf"), device=sc.device)
+        m = parallel.all_reduce(m, group, torch.distributed.ReduceOp.MAX)
+        e = torch.exp(sc - m[..., None])
+        w = e / parallel.all_reduce(e.sum(-1), group)[..., None]
+    out = torch.einsum("bngk,bknd->bngd", w.to(vals.dtype).float(),
+                       vals.float())
+    if group is not None:
+        out = parallel.all_reduce(out, group)
+    return out.reshape(b, 1, spec.num_heads * hd)
 
 
 def decode_attention(p, x, cache: KVCache, *, spec: AttnSpec,
-                     kv_src_cache: KVCache | None = None
+                     kv_src_cache: KVCache | None = None, lay=None
                      ) -> tuple[torch.Tensor, KVCache]:
     """One-token decode against the cache. x: (B, 1, D).
 
@@ -189,33 +287,138 @@ def decode_attention(p, x, cache: KVCache, *, spec: AttnSpec,
     weight in the reference, so leaving them out is the same sum), with
     float32 scores and the probabilities cast to the values' dtype before
     the product with the values; the output takes ``x``'s dtype."""
-    b = x.shape[0]
-    pos = cache.length
-    positions = torch.full((1,), pos, device=x.device)
+    if lay is not None:
+        return _mesh_decode(p, x, cache, spec, lay)
+    positions = torch.full((1,), cache.length, device=x.device)
     if kv_src_cache is None:
         q, k, v = _project_qkv(p, x, positions, spec)
-        c = cache.k.shape[1]
-        if spec.window is None and pos >= c:
-            raise ValueError(f"KV cache of {c} tokens is full")
-        slot = pos % c
-        cache.k[:, slot:slot + 1].copy_(k)
-        cache.v[:, slot:slot + 1].copy_(v)
-        cache.length = pos + 1
-        valid = min(pos + 1, c)
-        keys, vals = cache.k[:, :valid], cache.v[:, :valid]
+        keys, vals = _write_token(cache, k, v, spec.window)
     else:
         q = _project_q(p, x, positions, spec)
         valid = kv_src_cache.length
         keys = kv_src_cache.k[:, :valid]
         vals = kv_src_cache.v[:, :valid]
-
-    g = spec.num_heads // spec.num_kv_heads
-    # GQA-grouped: contract against the cache without repeating K/V.
-    q5 = q.reshape(b, spec.num_kv_heads, g, spec.head_dim)
-    s = torch.einsum("bngd,bknd->bngk", q5.float(), keys.float())
-    s = s * spec.head_dim ** -0.5                    # (B, KV, G, valid)
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bngk,bknd->bngd", w.to(vals.dtype).float(),
-                       vals.float())
-    out = out.reshape(b, 1, spec.num_heads * spec.head_dim).to(x.dtype)
+    out = _attend_cache(q, keys, vals, spec).to(x.dtype)
     return layers.matmul(out, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# On a mesh
+# ---------------------------------------------------------------------------
+
+def _local(p, lay, spec: AttnSpec, q, kv, o, *, whole: bool) -> dict:
+    """The rank's weights: wq/bq split over ``model`` along ``q`` (None:
+    whole), wk/wv/bk/bv along ``kv``, wo along ``o``."""
+    def bias(w, dim):
+        return lay.weight(w, None if dim is None else 0, whole=whole)
+
+    lp = {"wq": lay.weight(p["wq"], q, whole=whole),
+          "wk": lay.weight(p["wk"], kv, whole=whole),
+          "wv": lay.weight(p["wv"], kv, whole=whole),
+          "wo": lay.weight(p["wo"], o, whole=whole)}
+    if spec.qkv_bias:
+        lp.update(bq=bias(p["bq"], q), bk=bias(p["bk"], kv),
+                  bv=bias(p["bv"], kv))
+    if spec.qk_norm:
+        for n in ("q_norm", "k_norm"):
+            lp[n] = {"scale": lay.weight(p[n]["scale"], None, whole=whole)}
+    return lp
+
+
+def _kv_for_heads(t, spec: AttnSpec, lo: int, hl: int):
+    """The KV heads (dim 2 of ``t``, all KV heads) that query heads lo ..
+    lo + hl - 1 read, in the flash op's grouping (query head ``h`` of
+    ``hl`` reads local KV head ``h // (hl // kv_local)``)."""
+    g = spec.num_heads // spec.num_kv_heads
+    if g % hl == 0:
+        return t[:, :, lo // g:lo // g + 1]
+    if hl % g == 0:
+        return t[:, :, lo // g:(lo + hl) // g]
+    return t[:, :, torch.arange(lo, lo + hl, device=t.device) // g]
+
+
+def _mesh_attention(p, h, spec: AttnSpec, lay, plain: bool,
+                    want_kv: bool = False):
+    """Self-attention of the rank's residual stream ``h`` (B, S or S/tp,
+    D).  Returns (the result on the residual stream, k, v): k and v with
+    every KV head over the whole sequence when ``want_kv`` (for the
+    cache), else the rank's own."""
+    tp, r = lay.tp, lay.tp_rank
+    nh, nkv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    b = h.shape[0]
+    s = h.shape[1] * (tp if lay.seq else 1)
+    causal = spec.causal
+    if nh % tp == 0:
+        # heads over ``model`` (Megatron); K/V heads too when they split.
+        kv_split = nkv % tp == 0
+        hl = nh // tp
+        lp = _local(p, lay, spec, 1, 1 if kv_split else None, 0,
+                    whole=False)
+        lspec = dataclasses.replace(
+            spec, num_heads=hl, num_kv_heads=nkv // tp if kv_split else nkv)
+        hin = lay.to_full(h)
+        q, k, v = _project_qkv(lp, hin, torch.arange(s, device=h.device),
+                               lspec)
+        kk, vv = (t if kv_split else _kv_for_heads(t, spec, r * hl, hl)
+                  for t in (k, v))
+        out = blockwise_attention(q, kk, vv, causal=causal,
+                                  window=spec.window, plain=plain)
+        y = lay.from_partial(layers.matmul(out.reshape(b, s, hl * hd),
+                                           lp["wo"]))
+        if want_kv and kv_split:
+            k, v = (parallel.all_gather(t, lay.tp_group, 2) for t in (k, v))
+        return y, k, v
+    if s % tp == 0:
+        # the query sequence over ``model`` against replicated K/V.
+        lp = _local(p, lay, spec, None, None, None, whole=False)
+        hq = lay.to_chunk(h)
+        sl = hq.shape[1]
+        off = r * sl
+        q = _project_q(lp, hq, torch.arange(off, off + sl, device=h.device),
+                       spec)
+        k, v = _project_kv(lp, lay.to_full(h),
+                           torch.arange(s, device=h.device), spec)
+        out = blockwise_attention(q, k, v, causal=causal,
+                                  window=spec.window, plain=plain,
+                                  q_offset=off)
+        y = layers.matmul(out.reshape(b, sl, nh * hd), lp["wo"])
+        return lay.from_chunk(y), k, v
+    # neither splits: every rank computes the whole attention.
+    lp = _local(p, lay, spec, None, None, None, whole=True)
+    q, k, v = _project_qkv(lp, h, torch.arange(s, device=h.device), spec)
+    out = blockwise_attention(q, k, v, causal=causal, window=spec.window,
+                              plain=plain)
+    return layers.matmul(out.reshape(b, s, nh * hd), lp["wo"]), k, v
+
+
+@torch.no_grad()
+def _mesh_decode(p, x, cache: KVCache, spec: AttnSpec, lay):
+    """One-token decode on a mesh: q, k, v with every head on every rank,
+    the token written on the rank that holds its slot, the softmax over
+    the slots combined across the ranks that split them (their maxima,
+    then the sums of the weights and of the weighted values)."""
+    tp, r = lay.tp, lay.tp_rank
+    nh, nkv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    positions = torch.full((1,), cache.length, device=x.device)
+    heads = tp > 1 and nh % tp == 0
+    if heads:
+        kv_split = nkv % tp == 0
+        lp = _local(p, lay, spec, 1, 1 if kv_split else None, 0, whole=True)
+        lspec = dataclasses.replace(
+            spec, num_heads=nh // tp,
+            num_kv_heads=nkv // tp if kv_split else nkv)
+        q, k, v = _project_qkv(lp, x, positions, lspec)
+        q = parallel.all_gather(q, lay.tp_group, 2)
+        if kv_split:
+            k, v = (parallel.all_gather(t, lay.tp_group, 2) for t in (k, v))
+    else:
+        lp = _local(p, lay, spec, None, None, None, whole=True)
+        q, k, v = _project_qkv(lp, x, positions, spec)
+    keys, vals = _write_token(cache, k, v, spec.window)
+    out = _attend_cache(q, keys, vals, spec, cache.group).to(x.dtype)
+    if heads:
+        hl = nh // tp
+        out = out[..., r * hl * hd:(r + 1) * hl * hd]
+        return parallel.all_reduce(layers.matmul(out, lp["wo"]),
+                                   lay.tp_group), cache
+    return layers.matmul(out, lp["wo"]), cache

@@ -6,12 +6,21 @@ accumulates in float32 and is cast back to the activation dtype: a
 bfloat16 ``torch.matmul`` does exactly that, and operands of two dtypes
 are promoted as jnp promotes them (:func:`matmul`).  Initializers draw
 from an explicit ``torch.Generator`` on the tensor's device.
+
+On an LM mesh (``lay``, a ``parallel.Layout``) the MLP is column- then
+row-parallel over ``model`` where the sharding rules split its hidden
+dim, and per-token work on the residual stream otherwise; the embedding
+and the cross-entropy are vocab-parallel where the rules split the vocab
+(each rank looks up or scores its vocab slice; the lookups and the
+softmax's maxima and sums are all-reduced).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed import parallel
 
 
 def dense_init(shape, *, generator: torch.Generator, device,
@@ -117,8 +126,11 @@ def mlp_shapes(d_model: int, d_ff: int, mlp_type: str) -> dict:
     raise ValueError(mlp_type)
 
 
-def mlp_apply(p, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
-    """``p`` maps the names of :func:`mlp_shapes` to tensors."""
+def mlp_apply(p, x: torch.Tensor, mlp_type: str, lay=None) -> torch.Tensor:
+    """``p`` maps the names of :func:`mlp_shapes` to tensors.  With
+    ``lay``, ``x`` is the rank's residual stream and so is the result."""
+    if lay is not None:
+        return _mesh_mlp(p, x, mlp_type, lay)
     if mlp_type == "swiglu":
         gate = F.silu(matmul(x, p["w_gate"]))
         return matmul(gate * matmul(x, p["w_up"]), p["w_down"])
@@ -136,8 +148,20 @@ def mlp_apply(p, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def embed_apply(embedding: torch.Tensor, tokens: torch.Tensor, *,
-                scale_by_sqrt_dim: bool = False) -> torch.Tensor:
-    emb = embedding[tokens]
+                scale_by_sqrt_dim: bool = False, lay=None) -> torch.Tensor:
+    """Rows of ``embedding`` (V, D) for ``tokens`` (B, S).  With ``lay``
+    the result is the rank's residual stream."""
+    if lay is None:
+        emb = embedding[tokens]
+    elif lay.model_dim(embedding) == 0:
+        rows = lay.weight(embedding, 0)
+        local = tokens - lay.tp_rank * rows.shape[0]
+        ok = (local >= 0) & (local < rows.shape[0])
+        emb = rows[torch.clamp(local, 0, rows.shape[0] - 1)]
+        emb = lay.from_partial(torch.where(ok[..., None], emb, 0))
+    else:
+        emb = lay.local_weight(embedding)[
+            parallel.chunk(tokens, lay.tp_group, 1) if lay.seq else tokens]
     if scale_by_sqrt_dim:
         emb = emb * torch.full((), emb.shape[-1] ** 0.5, dtype=emb.dtype,
                                device=emb.device)
@@ -159,11 +183,25 @@ def remat(fn, *args, **kwargs):
     return fn(*args, **kwargs)
 
 
-def _xent_chunk(h, w, targets, mask, vocab_ok, z_loss: float):
+def _xent_chunk(h, w, targets, mask, vocab_ok, z_loss: float,
+                vocab_lo: int = 0, group=None):
     logits = matmul_f32(h, w)
     logits = torch.where(vocab_ok, logits, -1e30)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, 1, targets[:, None])[:, 0]
+    if group is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, 1, targets[:, None])[:, 0]
+    else:
+        # vocab-parallel: the rank's slice of every row.
+        m = parallel.all_reduce(logits.detach().amax(-1), group,
+                                torch.distributed.ReduceOp.MAX)
+        se = parallel.reduce_from(torch.exp(logits - m[:, None]).sum(-1),
+                                  group)
+        lse = m + torch.log(se)
+        local = targets - vocab_lo
+        ok = (local >= 0) & (local < logits.shape[1])
+        gold = torch.gather(logits, 1, torch.clamp(
+            local, 0, logits.shape[1] - 1)[:, None])[:, 0]
+        gold = parallel.reduce_from(torch.where(ok, gold, 0.0), group)
     nll = lse - gold
     if z_loss:
         nll = nll + z_loss * lse ** 2
@@ -173,7 +211,8 @@ def _xent_chunk(h, w, targets, mask, vocab_ok, z_loss: float):
 def chunked_softmax_xent(h: torch.Tensor, w: torch.Tensor,
                          targets: torch.Tensor, mask: torch.Tensor, *,
                          valid_vocab: int, chunk: int = 4096,
-                         z_loss: float = 1e-4) -> torch.Tensor:
+                         z_loss: float = 1e-4, vocab_lo: int = 0,
+                         group=None, count=None) -> torch.Tensor:
     """Mean masked cross-entropy (+ z-loss) without materializing the
     (tokens, V) float32 logits of the whole batch: tokens go in chunks,
     each recomputed in the backward pass (:func:`remat`), as the
@@ -181,16 +220,45 @@ def chunked_softmax_xent(h: torch.Tensor, w: torch.Tensor,
 
     h: (B, S, D) final hidden states; w: (D, V) unembedding.  The last
     chunk is shorter instead of padded (padding rows carry mask 0 in the
-    reference, so the sum is the same)."""
+    reference, so the sum is the same).
+
+    On a mesh ``w`` is the rank's vocab slice from ``vocab_lo`` when
+    ``group`` (the ranks of the slices) is given, and ``count`` is the
+    mask's sum over the whole batch (the divisor)."""
     d = h.shape[-1]
     hf = h.reshape(-1, d)
     tf = targets.reshape(-1).long()
     mf = mask.reshape(-1).float()
     v = w.shape[-1]
-    vocab_ok = torch.arange(v, device=h.device) < valid_vocab
+    vocab_ok = torch.arange(vocab_lo, vocab_lo + v,
+                            device=h.device) < valid_vocab
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, hf.shape[0], chunk):
         total = total + remat(_xent_chunk, hf[i:i + chunk], w,
                               tf[i:i + chunk], mf[i:i + chunk], vocab_ok,
-                              z_loss)
-    return total / torch.clamp(torch.sum(mf), min=1.0)
+                              z_loss, vocab_lo, group)
+    if count is None:
+        count = torch.sum(mf)
+    return total / torch.clamp(count, min=1.0)
+
+
+def _mesh_mlp(p, x, mlp_type: str, lay) -> torch.Tensor:
+    """The MLP of the rank's residual stream: column- then row-parallel
+    where the rules split the hidden dim over ``model`` (the first weight
+    along its outputs), per-token with whole weights otherwise."""
+    first = p["w_in"] if mlp_type == "gelu" else p["w_gate"]
+    if lay.model_dim(first) != 1:
+        local = {k: lay.local_weight(p[k]) for k in mlp_shapes(
+            1, 1, mlp_type)}
+        return mlp_apply(local, x, mlp_type)
+    h = lay.to_full(x)
+    if mlp_type == "gelu":
+        u = F.gelu(matmul(h, lay.weight(p["w_in"], 1))
+                   + lay.weight(p["b_in"], 0), approximate="tanh")
+        y = lay.from_partial(matmul(u, lay.weight(p["w_out"], 0)))
+        return y + lay.local_weight(p["b_out"])
+    act = F.silu if mlp_type == "swiglu" else \
+        (lambda t: F.gelu(t, approximate="tanh"))
+    gate = act(matmul(h, lay.weight(p["w_gate"], 1)))
+    u = gate * matmul(h, lay.weight(p["w_up"], 1))
+    return lay.from_partial(matmul(u, lay.weight(p["w_down"], 0)))

@@ -17,6 +17,10 @@ device unless the caller passes another ``device`` (the tests pass
 on-card comparison's reference run); the default runs the flash kernel
 on CUDA tensors whose head dim it takes (64, 128, 256) and the plain
 version at other head dims.
+
+``ctx`` (an ``LMContext``) runs a step on an LM mesh: the parameters
+placed there by :meth:`Model.shard`, the batch this rank's share
+(``transformer.loss_fn``).  The encoder-decoder runs on one device only.
 """
 from __future__ import annotations
 
@@ -59,24 +63,41 @@ class Model:
         return self._mod.params_from_state(self.cfg, state,
                                            device=self.device)
 
-    # -- steps --------------------------------------------------------------
-    def loss_fn(self, params, batch):
-        return self._mod.loss_fn(params, batch, plain=self.plain)
+    def shard(self, params, ctx):
+        """``params`` placed on the mesh of ``ctx`` by the sharding rules
+        (``transformer.shard_params``)."""
+        self._mesh(ctx)
+        return transformer.shard_params(params, ctx)
 
-    def prefill(self, params, batch, *, max_len: int):
+    # -- steps --------------------------------------------------------------
+    def _mesh(self, ctx) -> dict:
+        if ctx is None:
+            return {}
         if self.cfg.is_encdec:
+            raise NotImplementedError(
+                "the encoder-decoder does not run on an LM mesh yet")
+        return {"ctx": ctx}
+
+    def loss_fn(self, params, batch, ctx=None):
+        return self._mod.loss_fn(params, batch, plain=self.plain,
+                                 **self._mesh(ctx))
+
+    def prefill(self, params, batch, *, max_len: int, ctx=None):
+        if self.cfg.is_encdec:
+            self._mesh(ctx)
             return encdec.prefill(params, batch["frames"], batch["tokens"],
                                   max_len=max_len, plain=self.plain)
         return transformer.prefill(params, batch["tokens"], max_len=max_len,
-                                   plain=self.plain)
+                                   plain=self.plain, **self._mesh(ctx))
 
-    def decode_step(self, params, token, caches):
-        return self._mod.decode_step(params, token, caches)
+    def decode_step(self, params, token, caches, ctx=None):
+        return self._mod.decode_step(params, token, caches,
+                                     **self._mesh(ctx))
 
-    def init_caches(self, batch: int, max_len: int):
+    def init_caches(self, batch: int, max_len: int, ctx=None):
         if self.cfg.is_encdec:
             raise NotImplementedError(
                 "encoder-decoder caches come from prefill() (the cross "
                 "caches need the encoder's output)")
         return transformer.init_caches(self.cfg, batch, max_len,
-                                       device=self.device)
+                                       device=self.device, ctx=ctx)

@@ -21,6 +21,18 @@ layer index after ``blocks`` (``blocks.3.attn.wq``); the reference scans
 a stacked copy of its blocks, the port loops over a ``ModuleList``.
 Every tensor is created on the caller's device: weights are drawn there
 from an explicit ``torch.Generator``.
+
+``loss_fn``, ``prefill`` and ``decode_step`` take the reference's ``ctx``
+(an ``LMContext``; None runs one device as before).  On a mesh the
+parameters are DTensors placed by ``sharding.param_specs``
+(``shard_params``), the batch is this rank's share of the data axes, and
+each rank runs its part through ``distributed.parallel``: attention,
+MLPs, experts, embedding and loss split over ``model``, the residual
+stream split along the sequence at the layer boundary where
+``cfg.seq_shard`` (the reference's ``bnd``; training and prefill, when
+``model`` divides the sequence).  The ``attn``, ``lattn`` and ``moe``
+kinds run on a mesh; the recurrent kinds and the encoder-decoder raise
+there.
 """
 from __future__ import annotations
 
@@ -28,6 +40,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import parallel
 from repro_torch.models import attention, layers, moe as moe_lib
 from repro_torch.models import rglru, rwkv6
 
@@ -72,12 +85,13 @@ def _norm_shapes(cfg: ModelConfig, prefix: str) -> dict:
     return shapes
 
 
-def norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+def norm(cfg: ModelConfig, p, x: torch.Tensor, lay=None) -> torch.Tensor:
     """The config's norm: rmsnorm (``scale``) or layernorm (``scale``,
-    ``bias``)."""
+    ``bias``); with ``lay`` on the rank's residual stream."""
+    w = (lambda t: t) if lay is None else lay.local_weight
     if cfg.norm_type == "layernorm":
-        return layers.layernorm(p["scale"], p["bias"], x)
-    return layers.rmsnorm(p["scale"], x)
+        return layers.layernorm(w(p["scale"]), w(p["bias"]), x)
+    return layers.rmsnorm(w(p["scale"]), x)
 
 
 def prefixed(prefix: str, shapes: dict) -> dict:
@@ -173,33 +187,39 @@ class Block(ParamTree):
         self.spec = attn_spec(cfg, local=kind == "lattn")
 
     def forward(self, x, *, cache=None, decode: bool = False,
-                plain: bool = False):
+                plain: bool = False, lay=None):
         """Full sequence (cache None), prefill (cache given) or one-token
         decode.  Returns (x, aux, cache): ``aux`` is the router's
-        load-balance loss of a moe block, None for the others."""
+        load-balance loss of a moe block, None for the others.  With
+        ``lay`` (a mesh) ``x`` is the rank's residual stream."""
         cfg = self.cfg
+        if lay is not None and self.kind in ("rwkv", "rec"):
+            raise NotImplementedError(
+                f"{self.kind} blocks do not run on an LM mesh yet")
         if self.kind == "rwkv":
             return self._rwkv(x, cache)
         if self.kind == "rec":
             return self._rec(x, cache, decode)
-        h = norm(cfg, self.norm1, x)
+        h = norm(cfg, self.norm1, x, lay)
         if cache is None:
             a = attention.apply_attention(self.attn, h, spec=self.spec,
-                                          plain=plain)
+                                          plain=plain, lay=lay)
         elif decode:
             a, cache = attention.decode_attention(self.attn, h, cache,
-                                                  spec=self.spec)
+                                                  spec=self.spec, lay=lay)
         else:
             a, cache = attention.prefill_attention(self.attn, h, cache,
                                                    spec=self.spec,
-                                                   plain=plain)
+                                                   plain=plain, lay=lay)
         x = x + a
-        h = norm(cfg, self.norm2, x)
+        h = norm(cfg, self.norm2, x, lay)
         if self.kind != "moe":
-            return x + layers.mlp_apply(self.mlp, h, cfg.mlp_type), None, cache
-        m, aux = moe_lib.moe_apply(self.moe, h, moe_spec(cfg), decode=decode)
+            return x + layers.mlp_apply(self.mlp, h, cfg.mlp_type,
+                                        lay), None, cache
+        m, aux = moe_lib.moe_apply(self.moe, h, moe_spec(cfg), decode=decode,
+                                   lay=lay)
         if cfg.moe_shared_expert:
-            m = m + layers.mlp_apply(self.shared, h, cfg.mlp_type)
+            m = m + layers.mlp_apply(self.shared, h, cfg.mlp_type, lay)
         return x + m, aux, cache
 
     def _rwkv(self, x, state):
@@ -309,8 +329,20 @@ def params_from_state(cfg: ModelConfig, state: dict, *,
 # Forward passes
 # ---------------------------------------------------------------------------
 
+def layout(cfg: ModelConfig, ctx, seq_len: int, *, decode: bool = False):
+    """The ``parallel.Layout`` of a pass over ``seq_len`` tokens on
+    ``ctx`` (None without one): the residual stream split along the
+    sequence where ``cfg.seq_shard`` and ``model`` divides it, the
+    reference's ``bnd`` (never in decode)."""
+    if ctx is None:
+        return None
+    tp = ctx.axis_size(ctx.tp_axis)
+    return parallel.Layout(ctx, cfg.seq_shard and not decode and tp > 1
+                           and seq_len % tp == 0)
+
+
 def backbone(params: Transformer, x: torch.Tensor, *, caches=None,
-             decode: bool = False, plain: bool = False):
+             decode: bool = False, plain: bool = False, lay=None):
     """Run all blocks.  Returns (x, aux_total, caches): the MoE routers'
     load-balance losses summed over layers (float32; 0 for dense
     stacks).  Under ``cfg.remat == "full"`` each block is recomputed in
@@ -320,7 +352,7 @@ def backbone(params: Transformer, x: torch.Tensor, *, caches=None,
     remat = params.cfg.remat == "full"
     for i, block in enumerate(params.blocks):
         kw = dict(cache=None if caches is None else caches[i],
-                  decode=decode, plain=plain)
+                  decode=decode, plain=plain, lay=lay)
         x, aux, cache = layers.remat(block, x, **kw) if remat \
             else block(x, **kw)
         if aux is not None:
@@ -330,11 +362,39 @@ def backbone(params: Transformer, x: torch.Tensor, *, caches=None,
     return x, aux_total, caches
 
 
-def logits_from_hidden(params: Transformer, x: torch.Tensor) -> torch.Tensor:
+def _head(params: Transformer):
+    """The unembedding (D, V): the head, or the tied embedding's
+    transpose."""
+    return params.lm_head if params.lm_head is not None \
+        else params.embed["embedding"]
+
+
+def _head_local(params: Transformer, lay):
+    """The rank's unembedding (D, V or V/tp), the first vocab id it holds
+    and whether ``model`` splits the vocab."""
+    w = _head(params)
+    vdim = 1 if params.lm_head is not None else 0
+    split = lay.model_dim(w) == vdim
+    wl = lay.weight(w, vdim) if split else lay.local_weight(w)
+    if params.lm_head is None:
+        wl = wl.T
+    return wl, (lay.tp_rank * wl.shape[1] if split else 0), split
+
+
+def logits_from_hidden(params: Transformer, x: torch.Tensor,
+                       lay=None) -> torch.Tensor:
+    """float32 logits of ``x`` (B, s, D; whole on every rank with
+    ``lay``), padded vocab rows masked."""
     cfg = params.cfg
-    h = norm(cfg, params.final_norm, x)
-    logits = layers.unembed(params.embed["embedding"], h,
-                            head=params.lm_head)           # float32
+    h = norm(cfg, params.final_norm, x, lay)
+    if lay is None:
+        logits = layers.unembed(params.embed["embedding"], h,
+                                head=params.lm_head)
+    else:
+        w, _, split = _head_local(params, lay)
+        logits = layers.matmul_f32(h, w)
+        if split:
+            logits = parallel.all_gather(logits, lay.tp_group, -1)
     # Mask padded vocab rows out of the softmax.
     if cfg.padded_vocab != cfg.vocab_size:
         valid = torch.arange(cfg.padded_vocab, device=x.device) \
@@ -343,30 +403,59 @@ def logits_from_hidden(params: Transformer, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def embed_tokens(params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(params: Transformer, tokens: torch.Tensor,
+                 lay=None) -> torch.Tensor:
     return layers.embed_apply(
         params.embed["embedding"], tokens,
-        scale_by_sqrt_dim=params.cfg.embed_scale_sqrt_dim)
+        scale_by_sqrt_dim=params.cfg.embed_scale_sqrt_dim, lay=lay)
 
 
 def loss_fn(params: Transformer, batch: dict, *,
-            plain: bool = False):
+            plain: bool = False, ctx=None):
     """batch: dict(inputs (B,S) int, targets (B,S) int, mask (B,S)).
-    Returns (ce + aux, {"ce", "aux"})."""
+    Returns (ce + aux, {"ce", "aux"}).
+
+    With ``ctx`` the batch is this rank's share of the data axes and the
+    loss returned is the rank's share of the sum over them (what its
+    backward pass starts from); the metrics are the whole batch's."""
     cfg = params.cfg
-    x = embed_tokens(params, batch["inputs"])
-    x, aux, _ = backbone(params, x, plain=plain)
-    h = norm(cfg, params.final_norm, x)
-    w = params.lm_head
-    if w is None:
-        w = params.embed["embedding"].T
-    ce = layers.chunked_softmax_xent(h, w, batch["targets"], batch["mask"],
-                                     valid_vocab=cfg.vocab_size)
-    return ce + aux, {"ce": ce, "aux": aux}
+    lay = layout(cfg, ctx, batch["inputs"].shape[1])
+    x = embed_tokens(params, batch["inputs"], lay)
+    x, aux, _ = backbone(params, x, plain=plain, lay=lay)
+    h = norm(cfg, params.final_norm, x, lay)
+    if lay is None:
+        w = params.lm_head
+        if w is None:
+            w = params.embed["embedding"].T
+        ce = layers.chunked_softmax_xent(h, w, batch["targets"],
+                                         batch["mask"],
+                                         valid_vocab=cfg.vocab_size)
+        return ce + aux, {"ce": ce, "aux": aux}
+    w, lo, split = _head_local(params, lay)
+    targets, mask = batch["targets"], batch["mask"]
+    count = lay.dp_sum(torch.sum(mask.float()))
+    if split:
+        ce = layers.chunked_softmax_xent(
+            lay.to_full(h), w, targets, mask, valid_vocab=cfg.vocab_size,
+            vocab_lo=lo, group=lay.tp_group, count=count)
+    else:
+        if lay.seq:
+            targets, mask = (parallel.chunk(t, lay.tp_group, 1)
+                             for t in (targets, mask))
+        ce = layers.chunked_softmax_xent(h, w, targets, mask,
+                                         valid_vocab=cfg.vocab_size,
+                                         count=count)
+        if lay.seq:
+            ce = parallel.reduce_from(ce, lay.tp_group)
+    dp = ctx.dp_size
+    loss = ce + aux / dp
+    ce_all = lay.dp_sum(ce.detach())
+    aux_all = lay.dp_sum(aux.detach()) / dp
+    return loss, {"ce": ce_all, "aux": aux_all, "loss": ce_all + aux_all}
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     *, device):
+                     *, device, lay=None):
     dt = DTYPES[cfg.dtype]
     if kind == "rwkv":
         return rwkv6.init_rwkv_state(batch, cfg.d_model, dtype=dt,
@@ -377,31 +466,59 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                                           device=device)
     return attention.init_cache(batch, max_len,
                                 attn_spec(cfg, local=kind == "lattn"),
-                                dtype=dt, device=device)
+                                dtype=dt, device=device, lay=lay)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
-                device) -> list:
-    """One cache a layer: a KV cache or a recurrent state."""
+                device, ctx=None) -> list:
+    """One cache a layer: a KV cache or a recurrent state (with ``ctx``,
+    the rank's block of the KV slots; ``batch`` is the rank's)."""
+    lay = layout(cfg, ctx, 1, decode=True)
     return [init_block_cache(cfg, cfg.block_kind(i), batch, max_len,
-                             device=device) for i in range(cfg.num_layers)]
+                             device=device, lay=lay)
+            for i in range(cfg.num_layers)]
 
 
 @torch.no_grad()
 def prefill(params: Transformer, tokens: torch.Tensor, *, max_len: int,
-            plain: bool = False):
-    """Prompt pass; returns (last-token logits (B, 1, V), caches)."""
-    caches = init_caches(params.cfg, tokens.shape[0], max_len,
-                         device=tokens.device)
-    x = embed_tokens(params, tokens)
-    x, _, caches = backbone(params, x, caches=caches, plain=plain)
-    return logits_from_hidden(params, x[:, -1:, :]), caches
+            plain: bool = False, ctx=None):
+    """Prompt pass; returns (last-token logits (B, 1, V), caches).  With
+    ``ctx``, ``tokens`` are the rank's share of the batch."""
+    cfg = params.cfg
+    caches = init_caches(cfg, tokens.shape[0], max_len,
+                         device=tokens.device, ctx=ctx)
+    lay = layout(cfg, ctx, tokens.shape[1])
+    x = embed_tokens(params, tokens, lay)
+    x, _, caches = backbone(params, x, caches=caches, plain=plain, lay=lay)
+    last = x[:, -1:, :]
+    if lay is not None and lay.seq:
+        last = parallel.all_gather(last, lay.tp_group, 1)[:, -1:]
+    return logits_from_hidden(params, last, lay), caches
 
 
 @torch.no_grad()
-def decode_step(params: Transformer, token: torch.Tensor, caches: list):
+def decode_step(params: Transformer, token: torch.Tensor, caches: list, *,
+                ctx=None):
     """token: (B, 1) int. Returns (logits (B, 1, V), caches updated in
     place)."""
-    x = embed_tokens(params, token)
-    x, _, caches = backbone(params, x, caches=caches, decode=True)
-    return logits_from_hidden(params, x), caches
+    lay = layout(params.cfg, ctx, 1, decode=True)
+    x = embed_tokens(params, token, lay)
+    x, _, caches = backbone(params, x, caches=caches, decode=True, lay=lay)
+    return logits_from_hidden(params, x, lay), caches
+
+
+def shard_params(params: Transformer, ctx) -> Transformer:
+    """``params`` (whole on every rank) with each parameter replaced by a
+    DTensor on ``ctx.mesh`` placed by ``sharding.param_specs``; each rank
+    keeps its block.  Returns the same module."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import sharding
+    whole = {k: p.detach() for k, p in params.named_parameters()
+             if not isinstance(p, DTensor)}
+    placed = sharding.to_named(
+        whole, sharding.param_specs(whole, ctx, params.cfg), ctx)
+    for name, t in placed.items():
+        *path, leaf = name.split(".")
+        owner = params.get_submodule(".".join(path)) if path else params
+        setattr(owner, leaf, nn.Parameter(t))
+    return params

@@ -24,6 +24,16 @@ bias corrections; ``p.f32 - step`` rounded to the parameter's dtype).
 
 There is no fused kernel: each leaf runs the reference's dozen elementwise
 operations in its order.
+
+On an LM mesh the parameters and their gradients are DTensors placed by
+``sharding.param_specs`` and the moments DTensors placed by
+``sharding.opt_state_specs`` (``init(params, ctx)``: ZeRO over
+``data``).  The global norm is one all-reduce of the ranks' sums of
+squares, each element counted once (a rank's sum is divided by the
+number of ranks holding the same block), so every rank gets the same
+norm.  Each leaf is updated on the moments' blocks (the gradient and the
+parameter sliced there, which sends nothing) and the new parameter is
+gathered back onto its own placement.
 """
 from __future__ import annotations
 
@@ -73,13 +83,21 @@ class AdamW:
     total_steps: int = 10000
     min_lr_ratio: float = 0.1
 
-    def init(self, params) -> OptState:
+    def init(self, params, ctx=None) -> OptState:
+        """Zero moments; with ``ctx`` DTensors placed by
+        ``sharding.opt_state_specs`` (``params`` a model placed on its
+        mesh)."""
         leaves = named_leaves(params)
+        device = ctx.device if ctx is not None else \
+            next(iter(leaves.values())).device
+        count = torch.zeros((), dtype=torch.int32, device=device)
+        if ctx is not None:
+            mu = _moments(params, ctx)
+            return OptState(mu, _moments(params, ctx), count)
         zeros = {k: torch.zeros(p.shape, dtype=torch.float32,
                                 device=p.device) for k, p in leaves.items()}
-        device = next(iter(leaves.values())).device
         return OptState(zeros, {k: z.clone() for k, z in zeros.items()},
-                        torch.zeros((), dtype=torch.int32, device=device))
+                        count)
 
     def schedule(self, step: torch.Tensor) -> torch.Tensor:
         step = step.to(torch.float32)
@@ -99,8 +117,14 @@ class AdamW:
         decayed = decayed_names(params) if self.weight_decay else set()
         gnorm = torch.zeros((), dtype=torch.float32,
                             device=state.count.device)
+        mesh = _mesh_of(leaves)
         for k in leaves:             # widened leaf by leaf, not all at once
-            gnorm = gnorm + torch.sum(torch.square(grads[k].to(torch.float32)))
+            g, copies = _local(grads[k])
+            sq = torch.sum(torch.square(g.to(torch.float32)))
+            gnorm = gnorm + (sq / copies if copies > 1 else sq)
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.all_reduce(gnorm)
         gnorm = torch.sqrt(gnorm)
         clip = torch.full((), self.grad_clip, dtype=torch.float32,
                           device=gnorm.device)
@@ -112,12 +136,70 @@ class AdamW:
 
         mu, nu = {}, {}
         for k, p in leaves.items():
-            g = grads[k].to(torch.float32) * scale
-            m = self.b1 * state.mu[k] + (1 - self.b1) * g
-            v = self.b2 * state.nu[k] + (1 - self.b2) * g * g
-            step = lr * (m / c1) / (torch.sqrt(v / c2) + self.eps)
-            if k in decayed:
-                step = step + lr * self.weight_decay * p.to(torch.float32)
-            p.copy_(p.to(torch.float32) - step)
-            mu[k], nu[k] = m, v
+            if mesh is None:
+                new, mu[k], nu[k] = self._leaf(
+                    p, grads[k], state.mu[k], state.nu[k], scale, lr, c1, c2,
+                    k in decayed)
+                p.copy_(new)
+                continue
+            from torch.distributed.tensor import DTensor
+            place = state.mu[k].placements
+            new, m, v = self._leaf(
+                p.redistribute(mesh, place).to_local(),
+                grads[k].redistribute(mesh, place).to_local(),
+                state.mu[k].to_local(), state.nu[k].to_local(), scale, lr,
+                c1, c2, k in decayed)
+            new = DTensor.from_local(new.to(p.dtype), mesh, place,
+                                     run_check=False, shape=p.shape,
+                                     stride=p.stride())
+            p.to_local().copy_(new.redistribute(mesh, p.placements)
+                               .to_local())
+            mu[k], nu[k] = (DTensor.from_local(t, mesh, place,
+                                               run_check=False,
+                                               shape=p.shape,
+                                               stride=p.stride())
+                            for t in (m, v))
         return OptState(mu, nu, count), {"grad_norm": gnorm, "lr": lr}
+
+    def _leaf(self, p, g, mu, nu, scale, lr, c1, c2, decay: bool):
+        """One leaf's update: (the new parameter in float32, mu, nu)."""
+        g = g.to(torch.float32) * scale
+        m = self.b1 * mu + (1 - self.b1) * g
+        v = self.b2 * nu + (1 - self.b2) * g * g
+        step = lr * (m / c1) / (torch.sqrt(v / c2) + self.eps)
+        if decay:
+            step = step + lr * self.weight_decay * p.to(torch.float32)
+        return p.to(torch.float32) - step, m, v
+
+
+def _mesh_of(leaves: dict):
+    """The device mesh of DTensor parameters, None for plain tensors."""
+    from torch.distributed.tensor import DTensor
+    first = next(iter(leaves.values()))
+    return first.device_mesh if isinstance(first, DTensor) else None
+
+
+def _local(t):
+    """(the local tensor, how many ranks hold the same block)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        return t, 1
+    copies = 1
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Replicate):
+            copies *= t.device_mesh.size(i)
+    return t.to_local(), copies
+
+
+def _moments(params, ctx) -> dict:
+    """float32 zeros placed by ``sharding.opt_state_specs``."""
+    from torch.distributed.tensor import zeros
+    from repro_torch.distributed import sharding
+    leaves = named_leaves(params)
+    pspecs = sharding.param_specs(leaves, ctx, params.cfg)
+    mspecs = sharding.opt_state_specs(pspecs, leaves, ctx, cfg=params.cfg)
+    names = ctx.mesh.mesh_dim_names
+    return {k: zeros(p.shape, dtype=torch.float32, device_mesh=ctx.mesh,
+                     placements=sharding.placements(
+                         sharding.guarded(mspecs[k], p.shape, ctx), names))
+            for k, p in leaves.items()}

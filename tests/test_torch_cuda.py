@@ -425,6 +425,83 @@ def test_flash_attention_kernel_matches_plain_version(dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_kernel_at_query_offsets(dtype, tol):
+    """A rank's block of the query rows (``q_offset``): causal, windowed,
+    ragged and non-causal, against the plain version; offset 0 is the
+    whole-sequence kernel."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(1)
+    for b, h, kv, sq, skv, hd, causal, window, off in (
+            (1, 4, 2, 64, 256, 64, True, None, 192),
+            (2, 8, 2, 128, 512, 128, True, None, 384),
+            (1, 4, 1, 100, 300, 256, True, None, 150),
+            (1, 4, 2, 128, 512, 128, True, 70, 300),
+            (1, 2, 2, 64, 128, 128, False, None, 64)):
+        q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                   .to(dtype).cuda() for s in ((b, h, sq, hd),
+                                               (b, kv, skv, hd),
+                                               (b, kv, skv, hd)))
+        got = kfa.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                      q_offset=off)
+        want = rfa.attention(q, k, v, causal=causal, window=window,
+                             q_offset=off)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        # the same rows at the end of a whole query sequence
+        whole = torch.cat([torch.randn_like(q[:, :, :1]).expand(
+            b, h, off, hd), q], 2)
+        full = kfa.flash_attention_fwd(whole, k, v, causal=causal,
+                                       window=window)
+        torch.testing.assert_close(full[:, :, off:].float(), got.float(),
+                                   atol=tol, rtol=tol)
+    with pytest.raises(ValueError, match="q_offset"):
+        kfa.flash_attention_fwd(q, k, v, q_offset=-1)
+
+
+@pytest.mark.cuda
+def test_lm_mesh_one_rank_matches_unsharded():
+    """A train step and a greedy serve on a (1, 1) mesh of one NCCL rank
+    (``launch/mesh.py``): the same loss, grad norm and tokens as without
+    the mesh."""
+    _need_cuda()
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import mesh, steps
+    from repro_torch.optim.adamw import AdamW
+    started = not dist.is_initialized()
+    mesh.init_process_group()
+    try:
+        ctx = mesh.make_small_context(1, 1)
+        cfg = get_smoke_config("qwen1_5_0_5b")
+        shape = ShapeConfig("t", 32, 4, "train")
+        batch = {k: torch.from_numpy(v).cuda() for k, v in
+                 TokenStream(cfg.vocab_size, 32, 4).batch_at(0).items()}
+        out = {}
+        for c in (None, ctx):
+            model = Model(cfg)
+            params = model.init(torch.Generator("cuda").manual_seed(0))
+            if c is not None:
+                params = model.shard(params, c)
+            opt = AdamW()
+            bundle = steps.train_bundle(cfg, shape, opt, ctx=c)
+            _, _, m = bundle.fn(params, opt.init(params, c), batch)
+            tokens, _ = serve_lm.serve("qwen1_5_0_5b", params=params, ctx=c,
+                                       batch=2, prompt_len=8, gen_len=4,
+                                       max_len=16, verbose=False)
+            out[c is None] = (float(m["loss"]), float(m["grad_norm"]),
+                              tokens)
+        assert out[True][:2] == out[False][:2]
+        np.testing.assert_array_equal(out[True][2], out[False][2])
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("hd", [16, 96])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_op_routes_other_head_dims_to_plain_version(hd, dtype):

@@ -289,7 +289,10 @@ def test_port_import_leaves_jax_out():
             "repro_torch.roofline.analysis, repro_torch.roofline.autotune, "
             "repro_torch.launch.ph_distances, repro_torch.data.tokens, "
             "repro_torch.optim.adamw, repro_torch.checkpoint.ckpt, "
-            "repro_torch.launch.steps, repro_torch.launch.train; "
+            "repro_torch.launch.steps, repro_torch.launch.train, "
+            "repro_torch.distributed.sharding, "
+            "repro_torch.distributed.parallel, repro_torch.launch.mesh, "
+            "repro_torch.launch.dryrun; "
             "bad = sorted(m for m in sys.modules "
             "if m in ('jax', 'repro', 'ml_dtypes') "
             "or m.startswith(('jax.', 'repro.', 'ml_dtypes.'))); "
