@@ -187,6 +187,13 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
              partial hit equal to ``run_tiled``, an exact hit resolved on
              the submit thread; the device memory it holds); and
              ``python -m repro_torch.launch.ph_serve`` as a subprocess;
+18b. ph_examples — ``examples/quickstart_torch.py``,
+             ``distributed_ph_torch.py`` and ``serve_ph_torch.py`` in
+             process at their defaults: each finishes with phase-A and
+             best-edge launches; quickstart's regrown diagram equal to
+             the union-find oracle's, the distributed run's injected
+             failure recovered over 12 images, every served future
+             resolved with no plan built after the warmup;
 19. autotune — the phase-A kernel against its plain version at strip
              heights 4 and 32 (the 4096² frame, the survey bucket, the
              stride-2 peak grids; at 4096 columns S = 32 is a 3-block
@@ -250,9 +257,21 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
              against the caches ``cache_specs`` splits along the sequence,
              tokens equal and logits within ``LOGIT_ATOL``/``LOGIT_RTOL``
              of the same without the mesh, NCCL kernels from the profile;
-             after these timed runs, ``launch/dryrun.py``'s estimate of
-             the train cell on a fake one-rank group (its own process, on
-             the host) beside the measured peak.
+             rwkv6_3b, recurrentgemma_2b and whisper_small at full width
+             and depth (``MESH_FAMILIES``): a greedy prefill and
+             ``MESH_SERVE``'s decode steps on the mesh against the same
+             without it (tokens equal, logits within ``LOGIT_ATOL``/
+             ``LOGIT_RTOL``, held in ``FAMILY_LIMITS``' decode dtype: the
+             recurrent two on float32 copies, their bfloat16 runs read),
+             the mesh prefill's flash launches (0, 8, 36) equal to the
+             unsharded one's, its first and last flash call held to plain,
+             prefill and decode-step ms and peak memory both ways;
+             whisper_small's sharded ``train_bundle`` step in turns with
+             the unsharded one (``MESH_TRAIN_FAMILY``; loss and grad norm
+             as above, 72 flash launches a step each way); after these
+             timed runs, ``launch/dryrun.py``'s estimate of the qwen train
+             cell on a fake one-rank group (its own process, on the host)
+             beside the measured peak.
 
 Every kernel is timed two ways: ``ms`` is one call's CUDA-event time
 (``cuda_ms``: the host's launch overhead falls inside the interval when it
@@ -527,6 +546,22 @@ MESH_TRAIN_STEPS = 3
 MESH_PROFILE_TOP = 12       # host ops listed from a profiled mesh step
 MESH_SERVE_ARCH = "dbrx_132b"
 MESH_SERVE = dict(batch=4, prompt_len=512, gen_len=8, max_len=1024)
+# lm_mesh's families: the recurrent decoders and the encoder-decoder at
+# their published width and depth (bfloat16, weights drawn on the card
+# from seed 0), a greedy prefill and MESH_SERVE's decode steps on the mesh
+# against the same without it, and the flash launches of one prefill
+# (recurrentgemma's 8 local-attention layers, whisper's 36 calls, none in
+# rwkv6).  Each is held in FAMILY_LIMITS' decode dtype: rwkv6 and
+# recurrentgemma on float32 copies of the weights (their bfloat16 runs are
+# read beside).
+MESH_FAMILIES = {"rwkv6_3b": 0, "recurrentgemma_2b": 8, "whisper_small": 36}
+# whisper_small's sharded train_bundle step in turns with the unsharded
+# one: its decoder's 448-token context (the published model's), a global
+# batch of 4, each from seed 0's weights.  One step: the bfloat16
+# gradients of the tied embedding sum its lookup's and the head's parts in
+# another order on the mesh (grad norm 3.7e-4 apart), which Adam then
+# carries into the next step's loss.
+MESH_TRAIN_FAMILY = ("whisper_small", dict(seq_len=448, global_batch=4), 1)
 # Profiler ranges of a train step's attention backward (the plain
 # recompute and its gradient) and optimizer update, by kind.
 TRAIN_RANGES = {"lm_train.attention_backward": "attention_backward",
@@ -2074,6 +2109,65 @@ def phase_serving(reset_counts, read_counts, err) -> dict:
     return {"launches": launches, "cache_tier_launches": tier_launches}
 
 
+def phase_ph_examples(reset_counts, read_counts) -> dict:
+    """Phase 18b: the three PH examples (``examples/*_torch.py``) in
+    process on the card at their defaults (the work log under
+    ``build/``): each finishes and launches phase A and best-edge;
+    quickstart's diagram equals the union-find oracle's, the distributed
+    run recovers its injected failure, every served future resolves with
+    no plan built after the warmup.  Returns each one's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core import persistence_oracle
+    from repro_torch.data import astro
+
+    t_phase = time.perf_counter()
+    argv = {"quickstart_torch": [],
+            "distributed_ph_torch": ["--work-log", str(
+                ROOT / "build" / "ph_examples_worklog.jsonl")],
+            "serve_ph_torch": []}
+    out, launches = {}, {}
+    for name, args in argv.items():
+        example = load_example(name)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = example.main(args)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches[name] = {k: n for k, n in read_counts().items()
+                          if k in ("ph_phase_a", "ph_phase_c")}
+        if min(launches[name].values()) <= 0:
+            raise AssertionError(f"{name} missed a kernel: "
+                                 f"{launches[name]}")
+        out[name] = {"wall_s": wall_s, "launches": launches[name]}
+        if name == "quickstart_torch":
+            want = persistence_oracle(astro.generate_image(image_id=42,
+                                                           size=256))
+            if not np.array_equal(res["rows"], want):
+                raise AssertionError("quickstart's diagram != the oracle's")
+            out[name].update(components=res["components"],
+                             regrow_attempts=res["regrow_attempts"],
+                             oracle_equal=True)
+        elif name == "distributed_ph_torch":
+            if res["images"] != 12 or res["failures"] != 1:
+                raise AssertionError(f"distributed example: {res['images']} "
+                                     f"images, {res['failures']} failures")
+            out[name].update(images=res["images"], rounds=res["rounds"],
+                             failures=res["failures"],
+                             elapsed_s=res["elapsed_s"])
+        else:
+            if not res["resolved"] or res["steady_state_traces"]:
+                raise AssertionError(f"serve example: {res['resolved']} "
+                                     f"resolved, {res['steady_state_traces']}"
+                                     f" plans built after warmup")
+            out[name].update(resolved=res["resolved"],
+                             rejected=len(res["rejected"]),
+                             warmup=res["warmup"], buckets=res["buckets"])
+    emit("ph_examples", **out, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def tuned_strip_inputs(dev, x_main) -> list:
     """The inputs phase A meets at the autotuner's strip heights: the
     4096² astro frame, the mixed batch's (5, 2048, 2048) bucket and the
@@ -3595,15 +3689,21 @@ def train_resume(params, start: dict, root: Path, dev) -> dict:
             "restored_bitwise_equal": True, "async_save_held": True}
 
 
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    return example
+
+
 def train_example(reset_counts, read_counts, root: Path) -> dict:
     """``examples/train_lm_torch.py`` on the card (its defaults), its
     checkpoints under ``root``: the last loss below the first."""
-    import importlib.util
     import torch
-    spec = importlib.util.spec_from_file_location(
-        "train_lm_torch", ROOT / "examples" / "train_lm_torch.py")
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
+    example = load_example("train_lm_torch")
     reset_counts()
     t0 = time.perf_counter()
     history = example.main([*TRAIN_EXAMPLE_ARGS, "--ckpt-dir",
@@ -3756,21 +3856,30 @@ def _state_bytes(params, opt_state) -> int:
                * t.element_size() for t in tensors)
 
 
-def mesh_train_turns(ctx, dev, reset_counts, read_counts) -> dict:
-    """``TRAIN_ARCH`` at ``TRAIN_SHAPE``: the sharded train step in turns
-    with the unsharded one, each from seed 0's weights, on the same
-    batches; per step the loss, grad norm, ms, flash launches and peak
-    memory of each; NCCL kernels of one sharded step."""
+def mesh_train_turns(ctx, dev, reset_counts, read_counts,
+                     arch: str = TRAIN_ARCH, train_shape: dict = TRAIN_SHAPE,
+                     n_steps: int = MESH_TRAIN_STEPS,
+                     profile: bool = True) -> dict:
+    """``arch`` at ``train_shape``: the sharded train step in turns with
+    the unsharded one, each from seed 0's weights, on the same batches
+    (an encoder-decoder's frames drawn on the card from seed 0); per step
+    the loss, grad norm, ms, flash launches (twice a forward's: each
+    layer's attention is recomputed in the backward pass) and peak memory
+    of each; with ``profile`` the NCCL kernels and host ops of one more
+    step each way."""
     import torch
     from repro_torch.configs.base import ShapeConfig, get_config
     from repro_torch.data.tokens import TokenStream
     from repro_torch.launch import steps
     from repro_torch.models.model import Model
+    from repro_torch.models.transformer import DTYPES
     from repro_torch.optim.adamw import AdamW
 
-    cfg = get_config(TRAIN_ARCH)
-    b, s = TRAIN_SHAPE["global_batch"], TRAIN_SHAPE["seq_len"]
+    cfg = get_config(arch)
+    b, s = train_shape["global_batch"], train_shape["seq_len"]
     shape = ShapeConfig("lm_mesh", s, b, "train")
+    flash_per_step = 2 * (MESH_FAMILIES[arch] if cfg.is_encdec
+                          else cfg.num_layers)
     opt = AdamW()
     model = Model(cfg)
     runs = {}
@@ -3782,9 +3891,14 @@ def mesh_train_turns(ctx, dev, reset_counts, read_counts) -> dict:
                       "state": [params, opt.init(params, c)], "steps": []}
     resident = {n: _state_bytes(*r["state"]) for n, r in runs.items()}
     stream = TokenStream(cfg.vocab_size, s, b)
-    for i in range(MESH_TRAIN_STEPS):
+    frames = torch.Generator(device=dev).manual_seed(0)
+    for i in range(n_steps):
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in stream.batch_at(i).items()}
+        if cfg.is_encdec:       # in the config's dtype, as input_specs
+            batch["frames"] = torch.randn(
+                (b, cfg.encoder_seq, cfg.d_model), generator=frames,
+                device=dev).to(DTYPES[cfg.dtype])
         order = ("unsharded", "sharded") if i % 2 == 0 else \
             ("sharded", "unsharded")
         for name in order:
@@ -3806,30 +3920,35 @@ def mesh_train_turns(ctx, dev, reset_counts, read_counts) -> dict:
                 "peak_bytes": torch.cuda.max_memory_allocated(),
                 "peak_bytes_without_other_run":
                     torch.cuda.max_memory_allocated() - other})
-    # one more step each way under the profiler: where the host time goes
-    profiles = {}
-    for name in ("unsharded", "sharded"):
-        run = runs[name]
-        _, profiles[name] = profiled(
-            lambda: run["bundle"].fn(*run["state"], batch),
-            top=MESH_PROFILE_TOP)
     out = {n: r["steps"] for n, r in runs.items()}
-    out["resident_state_bytes"] = resident
-    out["nccl_launches_sharded_step"] = profiles["sharded"]["nccl_launches"]
-    added = {k: [c, ms - profiles["unsharded"]["host_top"].get(
-        k, [0, 0.0])[1]] for k, (c, ms) in
-        profiles["sharded"]["host_top"].items()}
-    out["profile"] = {
-        **profiles, "host_self_ms_added_top": dict(sorted(
-            added.items(), key=lambda kv: -kv[1][1])[:MESH_PROFILE_TOP])}
+    out.update(arch=arch, **train_shape, resident_state_bytes=resident)
+    if profile:
+        # one more step each way under the profiler: where the host time
+        # goes
+        profiles = {}
+        for name in ("unsharded", "sharded"):
+            run = runs[name]
+            _, profiles[name] = profiled(
+                lambda: run["bundle"].fn(*run["state"], batch),
+                top=MESH_PROFILE_TOP)
+        out["nccl_launches_sharded_step"] = \
+            profiles["sharded"]["nccl_launches"]
+        added = {k: [c, ms - profiles["unsharded"]["host_top"].get(
+            k, [0, 0.0])[1]] for k, (c, ms) in
+            profiles["sharded"]["host_top"].items()}
+        out["profile"] = {
+            **profiles, "host_self_ms_added_top": dict(sorted(
+                added.items(), key=lambda kv: -kv[1][1])[:MESH_PROFILE_TOP])}
     for u, m_ in zip(out["unsharded"], out["sharded"]):
         if abs(u["loss"] - m_["loss"]) > LOSS_ATOL or abs(
                 u["grad_norm"] - m_["grad_norm"]) > GRAD_NORM_RTOL * abs(
                     u["grad_norm"]):
-            raise AssertionError(f"sharded step {m_} != unsharded {u}")
+            raise AssertionError(f"{arch}: sharded step {m_} != unsharded "
+                                 f"{u}")
         if not u["flash_launches"] == m_["flash_launches"] == \
-                2 * cfg.num_layers:
-            raise AssertionError(f"flash launches a step: {u} / {m_}")
+                flash_per_step:
+            raise AssertionError(f"{arch}: flash launches a step: {u} / "
+                                 f"{m_}, expected {flash_per_step}")
     out["loss_diff"] = [m_["loss"] - u["loss"] for u, m_ in
                         zip(out["unsharded"], out["sharded"])]
     out["grad_norm_diff"] = [m_["grad_norm"] - u["grad_norm"] for u, m_ in
@@ -3837,6 +3956,42 @@ def mesh_train_turns(ctx, dev, reset_counts, read_counts) -> dict:
     del runs
     torch.cuda.empty_cache()
     return out
+
+
+def mesh_greedy(model, params, inputs, ctx, reset_counts,
+                read_counts) -> dict:
+    """A greedy prefill of ``inputs`` and ``MESH_SERVE``'s decode steps
+    (on the mesh of ``ctx``, or without one): the logits of the prompt's
+    last token and of each step, the tokens, the caches, the prefill's
+    flash launches, prefill ms, mean decode-step ms and the peak
+    memory."""
+    import torch
+    from repro_torch.launch import steps
+    kw = MESH_SERVE
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, steps.local_batch(inputs, ctx),
+                                   max_len=kw["max_len"], ctx=ctx)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    flash = read_counts()["flash_attention"]
+    outs = [logits[:, -1:]]
+    toks = [torch.argmax(outs[0], -1)]
+    t0 = time.perf_counter()
+    for _ in range(kw["gen_len"] - 1):
+        logits, caches = model.decode_step(params, toks[-1], caches,
+                                           ctx=ctx)
+        outs.append(logits)
+        toks.append(torch.argmax(logits, -1))
+    torch.cuda.synchronize()
+    return {"logits": torch.cat(outs, 1), "tokens": torch.cat(toks, 1),
+            "caches": caches, "flash_launches": flash,
+            "prefill_ms": prefill_ms,
+            "decode_step_ms": (time.perf_counter() - t0) * 1e3
+            / (kw["gen_len"] - 1),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
 
 
 def mesh_serve(ctx, dev, reset_counts, read_counts) -> dict:
@@ -3848,7 +4003,7 @@ def mesh_serve(ctx, dev, reset_counts, read_counts) -> dict:
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.distributed import sharding
-    from repro_torch.launch import serve_lm, steps
+    from repro_torch.launch import serve_lm
     from repro_torch.models import moe as moe_lib
     from repro_torch.models.model import Model
 
@@ -3859,23 +4014,8 @@ def mesh_serve(ctx, dev, reset_counts, read_counts) -> dict:
     kw = MESH_SERVE
     inputs = serve_lm.model_inputs(cfg, kw["batch"], kw["prompt_len"], 0,
                                    dev)
-
-    def greedy(c):
-        logits, caches = model.prefill(params, steps.local_batch(inputs, c),
-                                       max_len=kw["max_len"], ctx=c)
-        outs = [logits[:, -1:]]
-        tok = torch.argmax(outs[0], -1)
-        toks = [tok]
-        for _ in range(kw["gen_len"] - 1):
-            logits, caches = model.decode_step(params, tok, caches, ctx=c)
-            outs.append(logits)
-            tok = torch.argmax(logits, -1)
-            toks.append(tok)
-        return torch.cat(outs, 1), torch.cat(toks, 1), caches
-
-    reset_counts()
-    want_logits, want_tokens, _ = greedy(None)
-    plain_flash = read_counts()["flash_attention"]
+    want = mesh_greedy(model, params, inputs, None, reset_counts,
+                       read_counts)
     params = model.shard(params, ctx)
     paths = {"a2a": 0, "psum": 0}
     saved = {p: getattr(moe_lib, f"_{p}_path") for p in paths}
@@ -3889,36 +4029,134 @@ def mesh_serve(ctx, dev, reset_counts, read_counts) -> dict:
     for p in paths:
         setattr(moe_lib, f"_{p}_path", counted(p))
     try:
-        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        (logits, tokens, caches), prof = profiled(lambda: greedy(ctx))
+        got, prof = profiled(lambda: mesh_greedy(
+            model, params, inputs, ctx, reset_counts, read_counts))
         ms = (time.perf_counter() - t0) * 1e3
-        flash = read_counts()["flash_attention"]
     finally:
         for p, fn in saved.items():
             setattr(moe_lib, f"_{p}_path", fn)
-    diff = (logits.float() - want_logits.float()).abs()
-    limit = LOGIT_ATOL + LOGIT_RTOL * want_logits.float().abs()
+    read = logit_reading(got["logits"], want["logits"])
+    caches = got["caches"]
     out = {"arch": MESH_SERVE_ARCH, "layers": depth, **kw,
-           "tokens_equal": bool(torch.equal(tokens, want_tokens)),
-           "logits_bitwise_equal": bool(torch.equal(logits, want_logits)),
-           "logit_max_abs_diff": float(diff.max()),
-           "logit_tol_ratio": float((diff / limit).max()),
-           "paths": paths, "flash_launches": flash,
-           "unsharded_flash_launches": plain_flash,
+           "tokens_equal": bool(torch.equal(got["tokens"], want["tokens"])),
+           "logits_bitwise_equal": bool(torch.equal(got["logits"],
+                                                    want["logits"])),
+           "logit_max_abs_diff": read["max_abs"],
+           "logit_tol_ratio": read["tol_ratio"],
+           "paths": paths, "flash_launches": got["flash_launches"],
+           "unsharded_flash_launches": want["flash_launches"],
            "nccl_launches": prof["nccl_launches"], "mesh_ms_profiled": ms,
            "cache_spec_k": list(sharding.cache_specs(
                caches, ctx)[0]["k"]),
            "cache_slots": [caches[0].k.shape[1], caches[0].start],
-           "peak_bytes": torch.cuda.max_memory_allocated()}
+           "peak_bytes": got["peak_bytes"]}
     if not out["tokens_equal"] or out["logit_tol_ratio"] > 1.0:
         raise AssertionError(f"mesh serve != unsharded: {out}")
     if paths != {"a2a": depth, "psum": depth * (kw["gen_len"] - 1)} or \
-            flash != depth or plain_flash != depth:
+            out["flash_launches"] != depth or \
+            out["unsharded_flash_launches"] != depth:
         raise AssertionError(f"routes or launches: {out}")
-    del params, caches, logits, want_logits
+    del params, caches, got, want
     torch.cuda.empty_cache()
+    return out
+
+
+def mesh_family_one(ctx, dev, arch: str, reset_counts, read_counts) -> dict:
+    """One architecture of ``MESH_FAMILIES``: greedy prefill and decode
+    with and without the mesh from the same weights and prompts (and
+    frames), in turns (off, on, on, off: the same storage, placed on the
+    mesh and not; a float32 copy off and on), held in ``FAMILY_LIMITS``'
+    decode dtype (equal tokens, logits within ``LOGIT_ATOL``/
+    ``LOGIT_RTOL``) and read in bfloat16; the mesh prefill's flash
+    launches equal the unsharded one's and
+    ``MESH_FAMILIES``' count, the first mesh run's first and last flash
+    call held to the plain version."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    held_dtype = FAMILY_LIMITS[arch]["decode"][0]
+    flash = MESH_FAMILIES[arch]
+    kw = MESH_SERVE
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    inputs = serve_lm.model_inputs(cfg, kw["batch"], kw["prompt_len"], 0,
+                                   dev)
+
+    def turns(m, prm, served: bool) -> list:
+        """(label, run) of greedy runs off, on, on and off the mesh (the
+        served dtype, its first mesh run's flash calls held), or off and
+        on (a float32 copy)."""
+        off = m.load(prm.state_dict())      # shares the storage, unplaced
+        on = m.shard(prm, ctx)
+        order = (("unsharded", off, None), ("mesh", on, ctx))
+        out = []
+        for label, p_, c in order + (order[::-1] if served else ()):
+            def run(p_=p_, c=c):
+                return mesh_greedy(m, p_, inputs, c, reset_counts,
+                                   read_counts)
+            if served and c is not None and flash and not any(
+                    lbl == "mesh" for lbl, _ in out):
+                r, held, _ = held_flash_calls(f"{arch} mesh prefill", run,
+                                              {"first": 0, "last": -1})
+                r["held_flash_calls"] = held
+            else:
+                r = run()
+            out.append((label, r))
+        return out
+
+    def reading(runs) -> dict:
+        want = runs[0][1]
+        read = {"tokens_equal": True, "logits_bitwise_equal": True,
+                "logit_max_abs_diff": 0.0, "logit_tol_ratio": 0.0}
+        for _, got in runs[1:]:
+            r = logit_reading(got["logits"], want["logits"])
+            read["tokens_equal"] &= bool(torch.equal(got["tokens"],
+                                                     want["tokens"]))
+            read["logits_bitwise_equal"] &= bool(torch.equal(
+                got["logits"], want["logits"]))
+            read["logit_max_abs_diff"] = max(read["logit_max_abs_diff"],
+                                             r["max_abs"])
+            read["logit_tol_ratio"] = max(read["logit_tol_ratio"],
+                                          r["tol_ratio"])
+        for key in ("flash_launches", "prefill_ms", "decode_step_ms",
+                    "peak_bytes"):
+            for label in ("unsharded", "mesh"):
+                read[f"{label}_{key}"] = [r[key] for lbl, r in runs
+                                          if lbl == label]
+        return read
+
+    dtypes = {}
+    if held_dtype != cfg.dtype:
+        wide_model = Model(cfg.replace(dtype=held_dtype))
+        wide = wide_model.load(params.state_dict())
+        dtypes[held_dtype] = reading(turns(wide_model, wide, served=False))
+        del wide
+        torch.cuda.empty_cache()
+    runs = turns(model, params, served=True)
+    dtypes[cfg.dtype] = reading(runs)
+    held = dtypes[held_dtype]
+    out = {"arch": arch, "layers": cfg.num_layers,
+           "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model,
+           **kw, "held_dtype": held_dtype, "by_dtype": dtypes,
+           "held_flash_calls": next((r.get("held_flash_calls", {})
+                                     for lbl, r in runs if lbl == "mesh"),
+                                    {})}
+    if not held["tokens_equal"] or held["logit_tol_ratio"] > 1.0:
+        raise AssertionError(f"{arch}: mesh greedy != unsharded: {out}")
+    launches = dtypes[cfg.dtype]
+    if set(launches["mesh_flash_launches"]
+           + launches["unsharded_flash_launches"]) != {flash}:
+        raise AssertionError(f"{arch}: flash launches a prefill: {out}")
+    out["mesh_flash_launches"] = flash
+    del runs, params
+    torch.cuda.empty_cache()
+    out["step_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3927,8 +4165,10 @@ def phase_lm_mesh(dev, reset_counts, read_counts) -> dict:
     the group, the sharded train step against the unsharded one
     (``mesh_train_turns``) beside ``launch/dryrun.py``'s estimate of the
     same cell (a fake process group in its own process, no card), and
-    the MoE decoder's mesh serve (``mesh_serve``).  Returns the flash
-    launches by run."""
+    the MoE decoder's mesh serve (``mesh_serve``), then the recurrent
+    decoders and the encoder-decoder on the mesh (``mesh_family_one``)
+    and whisper's sharded train step in turns with the unsharded one.
+    Returns the flash launches by run."""
     import os
     import torch
     import torch.distributed as dist
@@ -3962,6 +4202,13 @@ def phase_lm_mesh(dev, reset_counts, read_counts) -> dict:
             raise AssertionError("the (1, 1) mesh's group is not one rank")
         train = mesh_train_turns(ctx, dev, reset_counts, read_counts)
         serve = mesh_serve(ctx, dev, reset_counts, read_counts)
+        families = {arch: mesh_family_one(ctx, dev, arch, reset_counts,
+                                          read_counts)
+                    for arch in MESH_FAMILIES}
+        family_arch, family_shape, family_steps = MESH_TRAIN_FAMILY
+        family_train = mesh_train_turns(
+            ctx, dev, reset_counts, read_counts, family_arch, family_shape,
+            family_steps, profile=False)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -3994,10 +4241,15 @@ def phase_lm_mesh(dev, reset_counts, read_counts) -> dict:
                  "seconds": estimate["seconds"]},
          dryrun_peak_over_measured=estimate["memory"]["peak_bytes"]
          / sharded_peak, measured_sharded_peak_bytes=sharded_peak,
-         serve=serve, phase_s=phase_s)
+         serve=serve, families=families, family_train=family_train,
+         phase_s=phase_s)
     return {"qwen_sharded_step": train["sharded"][0]["flash_launches"],
             f"{MESH_SERVE_ARCH}_{serve['layers']}_layers_prefill":
-                serve["flash_launches"]}
+                serve["flash_launches"],
+            **{f"{arch}_prefill": f["mesh_flash_launches"]
+               for arch, f in families.items()},
+            f"{family_arch}_sharded_step":
+                family_train["sharded"][0]["flash_launches"]}
 
 
 def main() -> int:
@@ -4579,6 +4831,9 @@ def main() -> int:
     # -- 18. PH-as-a-service ---------------------------------------------------
     serving = phase_serving(reset_counts, read_counts, err)
 
+    # -- 18b. the PH examples ------------------------------------------------
+    ph_examples = phase_ph_examples(reset_counts, read_counts)
+
     # -- 19. the autotuner ---------------------------------------------------
     tuned = phase_autotune(dev, dict(
         frame=frame, threshold=res.threshold,
@@ -4603,6 +4858,8 @@ def main() -> int:
          "launches": launches["ph_phase_a"],
          "pipeline_launches": pipeline["launches"]["ph_phase_a"],
          "serving_launches": serving["launches"]["ph_phase_a"],
+         "ph_examples_launches": {k: n["ph_phase_a"]
+                                  for k, n in ph_examples.items()},
          "autotune_search_launches":
              tuned["search_launches"]["ph_phase_a"],
          "autotune_tuned_run_launches":
@@ -4621,6 +4878,8 @@ def main() -> int:
          "serving_launches": serving["launches"]["ph_phase_c"],
          "serving_cache_tier_launches":
              serving["cache_tier_launches"]["ph_phase_c"],
+         "ph_examples_launches": {k: n["ph_phase_c"]
+                                  for k, n in ph_examples.items()},
          "autotune_search_launches":
              tuned["search_launches"]["ph_phase_c"],
          "autotune_tuned_run_launches":

@@ -276,6 +276,32 @@ class Layout:
             self.ctx.tp_axis)]
         return p.dim if isinstance(p, Shard) else None
 
+    def cache_dim(self, name: str, shape: tuple) -> int | None:
+        """The dim of a decode-cache leaf ``name`` (``k``, ``wkv``, ``h``,
+        ...) of whole ``shape`` that ``sharding.cache_specs`` splits over
+        ``model`` (of more than one rank), or None."""
+        if self.tp == 1:
+            return None
+        from repro_torch.distributed.sharding import cache_leaf_spec
+        ctx = self.ctx
+        spec = cache_leaf_spec(name, tuple(shape), ctx, tp=ctx.tp_axis,
+                               dp_axes=ctx.dp_axes)
+        return next((d for d, p in enumerate(spec) if p == ctx.tp_axis),
+                    None)
+
+    def cache_block(self, t: torch.Tensor, name: str, shape: tuple):
+        """This rank's block of the whole cache leaf ``t`` (of ``shape``)
+        as ``cache_specs`` splits it (``t`` itself where it does not)."""
+        dim = self.cache_dim(name, shape)
+        return t if dim is None else chunk(t, self.tp_group, dim)
+
+    def cache_whole(self, t: torch.Tensor, name: str,
+                    shape: tuple) -> torch.Tensor:
+        """The whole cache leaf of ``shape`` from the ranks' blocks ``t``
+        (no autograd: a state is read, never differentiated)."""
+        dim = self.cache_dim(name, shape)
+        return t if dim is None else all_gather(t, self.tp_group, dim)
+
     # -- activations --------------------------------------------------------
     def to_full(self, h: torch.Tensor) -> torch.Tensor:
         """The whole sequence for a product split over ``model``."""

@@ -36,9 +36,11 @@ the kernels) unless ``--device cpu`` asks for the host, where the mesh is
 ``cpu`` and the PH share takes the plain versions; without CUDA it raises
 unless the host is asked for.
 
-The recurrent kinds and the encoder-decoder do not run on a mesh yet:
-their cells record the error, as the reference's sweep records a failed
-cell and goes on.
+Every architecture's cells trace: the decoders of every block kind
+(attention, mixture-of-experts, RWKV-6, RG-LRU) and the Whisper
+encoder-decoder, whose decode cells take zero caches of the prefill's
+layout (``encdec.empty_caches``).  A cell that fails records its error,
+as the reference's sweep records a failed cell and goes on.
 
 Usage (the CLI and the artifact layout of the reference's, under
 ``artifacts/dryrun_torch/``):
@@ -224,8 +226,13 @@ def _fake_args(cfg, shape, bundle, params, ctx):
         return (params, {k: real(v) for k, v in bundle.args[1].items()})
     token = real(bundle.args[1])
     local = steps.local_batch({"token": token}, ctx)["token"]
-    caches = Model(cfg, device=dev).init_caches(local.shape[0],
-                                               shape.seq_len, ctx)
+    if cfg.is_encdec:
+        from repro_torch.models import encdec
+        caches = encdec.empty_caches(cfg, local.shape[0], shape.seq_len,
+                                     device=dev, ctx=ctx)
+    else:
+        caches = Model(cfg, device=dev).init_caches(local.shape[0],
+                                                   shape.seq_len, ctx)
     return (params, token, caches)
 
 
@@ -256,16 +263,17 @@ def _run_lm(cfg, shape, ctx) -> dict:
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import steps
-    from repro_torch.models import transformer
+    from repro_torch.models import encdec, transformer
     from repro_torch.models.model import Model
     from repro_torch.roofline import analysis
 
     _register_flash_flops()
     bundle = steps.bundle_for(cfg, shape, ctx=ctx)
     dev = ctx.device
+    tree = encdec.EncDec if cfg.is_encdec else transformer.Transformer
     with FakeTensorMode(allow_non_fake_inputs=True), fa_ops.card_route():
         model = Model(cfg, device=dev)
-        params = model.shard(transformer.Transformer(cfg, {
+        params = model.shard(tree(cfg, {
             k: torch.empty(v.shape, dtype=v.dtype, device=dev)
             for k, v in bundle.args[0].items()}), ctx)
         args = _fake_args(cfg, shape, bundle, params, ctx)

@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed import parallel, sharding
-from repro_torch.models import attention, encdec, transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamW, OptState
 
@@ -75,15 +75,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
         return {"tokens": _meta((b, s), torch.int32), **frames}
     if shape.kind == "decode":
         if cfg.is_encdec:
-            spec = encdec._spec(cfg, causal=True)
-            self_caches = [attention.init_cache(b, s, spec, dtype=dt,
-                                                device="meta")
-                           for _ in range(cfg.num_layers)]
-            kv = (b, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
-            cross = [attention.KVCache(_meta(kv, dt), _meta(kv, dt),
-                                       cfg.encoder_seq)
-                     for _ in range(cfg.num_layers)]
-            caches = (self_caches, cross)
+            caches = encdec.empty_caches(cfg, b, s, device="meta")
         else:
             caches = transformer.init_caches(cfg, b, s, device="meta")
         return {"token": _meta((b, 1), torch.int32), "caches": caches}

@@ -31,7 +31,10 @@ rows at their offset in the sequence (``q_offset``).  The flash op only
 ever sees local tensors.  A KV cache there holds the rank's block of the
 positions (``cache_specs``: the sequence over ``model``); decode writes a
 token on the rank that owns its slot and combines the ranks' partial
-softmaxes with all-reduces (flash-decoding).
+softmaxes with all-reduces (flash-decoding).  Cross-attention takes the
+same routes, its K/V projected from the source (whole on every rank); in
+decode its cache holds the rank's block of the source positions, laid
+out by the same rule, and is never written.
 """
 from __future__ import annotations
 
@@ -149,10 +152,10 @@ def apply_attention(p, x, *, spec: AttnSpec, kv_src=None,
     """Full-sequence attention (training / forward without cache): self-
     attention, or with ``kv_src`` (B, S_src, D) non-causal
     cross-attention over the source, its keys at positions 0..S_src-1.
-    With ``lay`` (self-attention on a mesh) ``x`` is the rank's residual
-    stream and so is the result."""
+    With ``lay`` (a mesh) ``x`` is the rank's residual stream and so is
+    the result; ``kv_src`` is whole on every rank."""
     if lay is not None:
-        return _mesh_attention(p, x, spec, lay, plain)[0]
+        return _mesh_attention(p, x, spec, lay, plain, kv_src=kv_src)[0]
     positions = torch.arange(x.shape[1], device=x.device)
     kv_positions = None if kv_src is None else torch.arange(
         kv_src.shape[1], device=x.device)
@@ -166,20 +169,23 @@ def cache_len(max_len: int, spec: AttnSpec) -> int:
     return min(max_len, spec.window) if spec.window is not None else max_len
 
 
+def slot_block(lay, batch: int, slots: int, spec: AttnSpec):
+    """The block of a cache's ``slots`` that this rank holds: (its first
+    slot, how many, the group of ranks that split them), all of them
+    unless ``lay`` splits them (``cache_specs``: the positions over
+    ``model``)."""
+    if lay is not None and lay.cache_dim("k", (
+            batch, slots, spec.num_kv_heads, spec.head_dim)) == 1:
+        n = slots // lay.tp
+        return lay.tp_rank * n, n, lay.tp_group
+    return 0, slots, None
+
+
 def init_cache(batch: int, max_len: int, spec: AttnSpec, *, dtype,
                device, lay=None) -> KVCache:
     """Zeros for ``batch`` sequences; with ``lay`` this rank's block of the
-    slots where ``cache_specs`` splits them over ``model``."""
-    c = cache_len(max_len, spec)
-    start, group = 0, None
-    if lay is not None and lay.tp > 1:
-        from repro_torch.distributed.sharding import cache_leaf_spec
-        ctx = lay.ctx
-        if cache_leaf_spec("k", (batch, c, spec.num_kv_heads,
-                                 spec.head_dim), ctx, tp=ctx.tp_axis,
-                           dp_axes=ctx.dp_axes)[1] is not None:
-            c //= lay.tp
-            start, group = lay.tp_rank * c, lay.tp_group
+    slots (:func:`slot_block`)."""
+    start, c, group = slot_block(lay, batch, cache_len(max_len, spec), spec)
     shape = (batch, c, spec.num_kv_heads, spec.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device), 0,
@@ -241,7 +247,13 @@ def _write_token(cache: KVCache, k, v, window: int | None):
         cache.k[:, at:at + 1].copy_(k)
         cache.v[:, at:at + 1].copy_(v)
     cache.length = pos + 1
-    n = max(0, min(min(pos + 1, c) - cache.start, cl))
+    return _filled(cache)
+
+
+def _filled(cache: KVCache):
+    """This rank's filled slots of ``cache`` (keys, values)."""
+    n = max(0, min(min(cache.length, _slots(cache)) - cache.start,
+                   cache.k.shape[1]))
     return cache.k[:, :n], cache.v[:, :n]
 
 
@@ -288,16 +300,14 @@ def decode_attention(p, x, cache: KVCache, *, spec: AttnSpec,
     float32 scores and the probabilities cast to the values' dtype before
     the product with the values; the output takes ``x``'s dtype."""
     if lay is not None:
-        return _mesh_decode(p, x, cache, spec, lay)
+        return _mesh_decode(p, x, cache, spec, lay, kv_src_cache)
     positions = torch.full((1,), cache.length, device=x.device)
     if kv_src_cache is None:
         q, k, v = _project_qkv(p, x, positions, spec)
         keys, vals = _write_token(cache, k, v, spec.window)
     else:
         q = _project_q(p, x, positions, spec)
-        valid = kv_src_cache.length
-        keys = kv_src_cache.k[:, :valid]
-        vals = kv_src_cache.v[:, :valid]
+        keys, vals = _filled(kv_src_cache)
     out = _attend_cache(q, keys, vals, spec).to(x.dtype)
     return layers.matmul(out, p["wo"]), cache
 
@@ -338,16 +348,28 @@ def _kv_for_heads(t, spec: AttnSpec, lo: int, hl: int):
 
 
 def _mesh_attention(p, h, spec: AttnSpec, lay, plain: bool,
-                    want_kv: bool = False):
+                    want_kv: bool = False, kv_src=None):
     """Self-attention of the rank's residual stream ``h`` (B, S or S/tp,
-    D).  Returns (the result on the residual stream, k, v): k and v with
-    every KV head over the whole sequence when ``want_kv`` (for the
-    cache), else the rank's own."""
+    D), or with ``kv_src`` (B, S_src, D, whole on every rank) non-causal
+    cross-attention over the source, its keys at positions 0 ..
+    S_src - 1.  Returns (the result on the residual stream, k, v): k and
+    v with every KV head over the whole sequence when ``want_kv`` (for
+    the cache), else the rank's own."""
     tp, r = lay.tp, lay.tp_rank
     nh, nkv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     b = h.shape[0]
     s = h.shape[1] * (tp if lay.seq else 1)
-    causal = spec.causal
+    causal = spec.causal and kv_src is None
+    pos = torch.arange(s, device=h.device)
+    kv_pos = pos if kv_src is None else torch.arange(kv_src.shape[1],
+                                                     device=h.device)
+
+    def source(full):
+        """The K/V input of a product split over ``model``: the whole
+        sequence ``full``, or the source entering the split."""
+        return full if kv_src is None else parallel.copy_to(kv_src,
+                                                            lay.tp_group)
+
     if nh % tp == 0:
         # heads over ``model`` (Megatron); K/V heads too when they split.
         kv_split = nkv % tp == 0
@@ -357,8 +379,8 @@ def _mesh_attention(p, h, spec: AttnSpec, lay, plain: bool,
         lspec = dataclasses.replace(
             spec, num_heads=hl, num_kv_heads=nkv // tp if kv_split else nkv)
         hin = lay.to_full(h)
-        q, k, v = _project_qkv(lp, hin, torch.arange(s, device=h.device),
-                               lspec)
+        q = _project_q(lp, hin, pos, lspec)
+        k, v = _project_kv(lp, source(hin), kv_pos, lspec)
         kk, vv = (t if kv_split else _kv_for_heads(t, spec, r * hl, hl)
                   for t in (k, v))
         out = blockwise_attention(q, kk, vv, causal=causal,
@@ -376,30 +398,33 @@ def _mesh_attention(p, h, spec: AttnSpec, lay, plain: bool,
         off = r * sl
         q = _project_q(lp, hq, torch.arange(off, off + sl, device=h.device),
                        spec)
-        k, v = _project_kv(lp, lay.to_full(h),
-                           torch.arange(s, device=h.device), spec)
+        k, v = _project_kv(lp, source(lay.to_full(h)), kv_pos, spec)
         out = blockwise_attention(q, k, v, causal=causal,
                                   window=spec.window, plain=plain,
-                                  q_offset=off)
+                                  q_offset=off if causal else 0)
         y = layers.matmul(out.reshape(b, sl, nh * hd), lp["wo"])
         return lay.from_chunk(y), k, v
     # neither splits: every rank computes the whole attention.
     lp = _local(p, lay, spec, None, None, None, whole=True)
-    q, k, v = _project_qkv(lp, h, torch.arange(s, device=h.device), spec)
+    q, k, v = _project_qkv(lp, h, pos, spec, kv_src, kv_pos)
     out = blockwise_attention(q, k, v, causal=causal, window=spec.window,
                               plain=plain)
     return layers.matmul(out.reshape(b, s, nh * hd), lp["wo"]), k, v
 
 
 @torch.no_grad()
-def _mesh_decode(p, x, cache: KVCache, spec: AttnSpec, lay):
-    """One-token decode on a mesh: q, k, v with every head on every rank,
-    the token written on the rank that holds its slot, the softmax over
-    the slots combined across the ranks that split them (their maxima,
-    then the sums of the weights and of the weighted values)."""
+def _mesh_decode(p, x, cache: KVCache, spec: AttnSpec, lay,
+                 kv_src_cache: KVCache | None = None):
+    """One-token decode on a mesh: q (and the token's k, v) with every
+    head on every rank, the token written on the rank that holds its
+    slot, the softmax over the slots combined across the ranks that split
+    them (their maxima, then the sums of the weights and of the weighted
+    values).  With ``kv_src_cache`` (cross-attention) the keys and values
+    are the rank's block of that cache and nothing is written."""
     tp, r = lay.tp, lay.tp_rank
     nh, nkv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     positions = torch.full((1,), cache.length, device=x.device)
+    cross = kv_src_cache is not None
     heads = tp > 1 and nh % tp == 0
     if heads:
         kv_split = nkv % tp == 0
@@ -407,15 +432,24 @@ def _mesh_decode(p, x, cache: KVCache, spec: AttnSpec, lay):
         lspec = dataclasses.replace(
             spec, num_heads=nh // tp,
             num_kv_heads=nkv // tp if kv_split else nkv)
-        q, k, v = _project_qkv(lp, x, positions, lspec)
-        q = parallel.all_gather(q, lay.tp_group, 2)
-        if kv_split:
-            k, v = (parallel.all_gather(t, lay.tp_group, 2) for t in (k, v))
+        q = parallel.all_gather(_project_q(lp, x, positions, lspec),
+                                lay.tp_group, 2)
+        if not cross:
+            k, v = _project_kv(lp, x, positions, lspec)
+            if kv_split:
+                k, v = (parallel.all_gather(t, lay.tp_group, 2)
+                        for t in (k, v))
     else:
         lp = _local(p, lay, spec, None, None, None, whole=True)
-        q, k, v = _project_qkv(lp, x, positions, spec)
-    keys, vals = _write_token(cache, k, v, spec.window)
-    out = _attend_cache(q, keys, vals, spec, cache.group).to(x.dtype)
+        q = _project_q(lp, x, positions, spec)
+        if not cross:
+            k, v = _project_kv(lp, x, positions, spec)
+    if cross:
+        (keys, vals), group = _filled(kv_src_cache), kv_src_cache.group
+    else:
+        keys, vals = _write_token(cache, k, v, spec.window)
+        group = cache.group
+    out = _attend_cache(q, keys, vals, spec, group).to(x.dtype)
     if heads:
         hl = nh // tp
         out = out[..., r * hl * hd:(r + 1) * hl * hd]

@@ -20,7 +20,8 @@ version at other head dims.
 
 ``ctx`` (an ``LMContext``) runs a step on an LM mesh: the parameters
 placed there by :meth:`Model.shard`, the batch this rank's share
-(``transformer.loss_fn``).  The encoder-decoder runs on one device only.
+(``transformer.loss_fn``, ``encdec.loss_fn``).  Every architecture runs
+there: the decoders of every block kind and the encoder-decoder.
 """
 from __future__ import annotations
 
@@ -66,33 +67,22 @@ class Model:
     def shard(self, params, ctx):
         """``params`` placed on the mesh of ``ctx`` by the sharding rules
         (``transformer.shard_params``)."""
-        self._mesh(ctx)
         return transformer.shard_params(params, ctx)
 
     # -- steps --------------------------------------------------------------
-    def _mesh(self, ctx) -> dict:
-        if ctx is None:
-            return {}
-        if self.cfg.is_encdec:
-            raise NotImplementedError(
-                "the encoder-decoder does not run on an LM mesh yet")
-        return {"ctx": ctx}
-
     def loss_fn(self, params, batch, ctx=None):
-        return self._mod.loss_fn(params, batch, plain=self.plain,
-                                 **self._mesh(ctx))
+        return self._mod.loss_fn(params, batch, plain=self.plain, ctx=ctx)
 
     def prefill(self, params, batch, *, max_len: int, ctx=None):
         if self.cfg.is_encdec:
-            self._mesh(ctx)
             return encdec.prefill(params, batch["frames"], batch["tokens"],
-                                  max_len=max_len, plain=self.plain)
+                                  max_len=max_len, plain=self.plain,
+                                  ctx=ctx)
         return transformer.prefill(params, batch["tokens"], max_len=max_len,
-                                   plain=self.plain, **self._mesh(ctx))
+                                   plain=self.plain, ctx=ctx)
 
     def decode_step(self, params, token, caches, ctx=None):
-        return self._mod.decode_step(params, token, caches,
-                                     **self._mesh(ctx))
+        return self._mod.decode_step(params, token, caches, ctx=ctx)
 
     def init_caches(self, batch: int, max_len: int, ctx=None):
         if self.cfg.is_encdec:

@@ -14,12 +14,22 @@ in another order, so the two agree to float32 rounding, not bitwise), and
 by one step in decode.
 
 Decode state per layer: ``{"conv": (B, W-1, R), "h": (B, R) float32}``.
+
+On an LM mesh (:func:`recurrent_block_mesh`, the residual stream
+replicated over ``model``) the rank holds a block of the R channels, as
+the sharding rules split ``w_in``, ``w_gate``, ``conv_w``, ``wa``, ``wx``
+(columns), ``w_out`` (rows) and the ``conv``/``h`` states: the conv, the
+gates' biases, ``lam``, the scan and the decode step run on the rank's
+channels; the gates read every channel, so the conv's output is
+all-gathered before ``wa``/``wx`` (their column blocks); ``w_out`` sums
+the ranks' products.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import parallel
 from repro_torch.models import layers
 
 RGLRU_C = 8.0
@@ -55,15 +65,19 @@ def _causal_conv1d(p, x: torch.Tensor, state: torch.Tensor):
     for i in range(wlen):
         y = y + full[:, i:i + t, :] * p["conv_w"][i]
     y = y + p["conv_b"]
-    new_state = full[:, -(wlen - 1):, :] if wlen > 1 else state
+    # the state in storage of its own, not a view keeping ``full`` alive
+    new_state = full[:, -(wlen - 1):, :].clone() if wlen > 1 else state
     return y, new_state
 
 
-def _gated(p, xf: torch.Tensor):
+def _gated(p, xf: torch.Tensor, gates_in: torch.Tensor | None = None):
     """(a, sqrt(clip(1 - a^2, 1e-12)) * (i * x)) in float32 for float32
-    x, in the reference's order of operations."""
-    r = torch.sigmoid(layers.matmul(xf, p["wa"].float()) + p["ba"].float())
-    i = torch.sigmoid(layers.matmul(xf, p["wx"].float()) + p["bx"].float())
+    x, in the reference's order of operations.  The gates read
+    ``gates_in`` (float32; on a mesh every channel of which ``xf`` is
+    the rank's block), by default ``xf``."""
+    g = xf if gates_in is None else gates_in
+    r = torch.sigmoid(layers.matmul(g, p["wa"].float()) + p["ba"].float())
+    i = torch.sigmoid(layers.matmul(g, p["wx"].float()) + p["bx"].float())
     lam = p["lam"].float()
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))   # jax's softplus
     a = torch.exp(-RGLRU_C * softplus * r)
@@ -82,20 +96,21 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def rglru(p, x: torch.Tensor, h0: torch.Tensor):
+def rglru(p, x: torch.Tensor, h0: torch.Tensor, gates_in=None):
     """x: (B, T, R); h0: (B, R) float32.  Returns (h in x's dtype, the
-    last h in float32)."""
+    last h in float32).  ``gates_in``: as :func:`_gated`'s."""
     xf = x.float()
-    a, b = _gated(p, xf)
+    a, b = _gated(p, xf, None if gates_in is None else gates_in.float())
     b[:, 0] += a[:, 0] * h0                     # fold h0 into b_0
     h = linear_scan(a, b)
-    return h.to(x.dtype), h[:, -1, :]
+    return h.to(x.dtype), h[:, -1, :].clone()
 
 
-def rglru_step(p, x: torch.Tensor, h0: torch.Tensor):
+def rglru_step(p, x: torch.Tensor, h0: torch.Tensor, gates_in=None):
     """One decode step. x: (B, 1, R); h0: (B, R) float32."""
     xf = x[:, 0, :].float()
-    a, gated = _gated(p, xf)
+    a, gated = _gated(p, xf, None if gates_in is None
+                      else gates_in[:, 0, :].float())
     h = a * h0 + gated
     return h.to(x.dtype)[:, None, :], h
 
@@ -114,9 +129,40 @@ def recurrent_block_apply(p, x: torch.Tensor, state: dict, *,
     return out, {"conv": conv_state, "h": h}
 
 
+def recurrent_block_mesh(p, x: torch.Tensor, state: dict, lay, *,
+                         decode: bool = False):
+    """:func:`recurrent_block_apply` of the residual stream ``x`` (whole
+    on every rank) on a mesh: the rank's block of the channels where the
+    rules split them (see the module docstring), whole weights
+    otherwise.  ``state`` and the state returned are the rank's
+    blocks."""
+    if lay.model_dim(p["w_in"]) != 1:
+        local = {k: lay.local_weight(p[k]) for k in recurrent_shapes(1, 1, 1)}
+        return recurrent_block_apply(local, x, state, decode=decode)
+    hin = lay.to_full(x)
+    col = {k: lay.weight(p[k], 1) for k in ("w_in", "w_gate", "conv_w",
+                                             "wa", "wx")}
+    lp = dict(col, **{k: lay.weight(p[k], 0)
+                      for k in ("conv_b", "ba", "bx", "lam")})
+    gate = F.gelu(layers.matmul(hin, lp["w_gate"]), approximate="tanh")
+    conv, conv_state = _causal_conv1d(lp, layers.matmul(hin, lp["w_in"]),
+                                      state["conv"])
+    whole = parallel.gather(conv, lay.tp_group, -1, reduce=True)
+    step = rglru_step if decode else rglru
+    y, h = step(lp, conv, state["h"], whole)
+    out = lay.from_partial(layers.matmul(y * gate,
+                                         lay.weight(p["w_out"], 0)))
+    return out, {"conv": conv_state, "h": h}
+
+
 def init_recurrent_state(batch: int, rnn_width: int, conv_width: int, *,
-                         dtype, device) -> dict:
-    return {"conv": torch.zeros((batch, conv_width - 1, rnn_width),
+                         dtype, device, lay=None) -> dict:
+    """Zero states; with ``lay`` this rank's blocks of the channels
+    (``cache_specs``)."""
+    r = rnn_width
+    if lay is not None and lay.cache_dim("h", (batch, r)) is not None:
+        r //= lay.tp
+    return {"conv": torch.zeros((batch, conv_width - 1, r),
                                 dtype=dtype, device=device),
-            "h": torch.zeros((batch, rnn_width), dtype=torch.float32,
+            "h": torch.zeros((batch, r), dtype=torch.float32,
                              device=device)}

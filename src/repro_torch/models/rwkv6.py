@@ -18,12 +18,30 @@ chosen by ``cfg.wkv_impl``:
 
 State per layer (decode): ``{"tm_x": (B, D), "cm_x": (B, D), "wkv": (B,
 H, 64, 64) float32}``; head size 64.
+
+On an LM mesh (:func:`timemix_mesh`, :func:`channelmix_mesh`; the
+residual stream replicated over ``model``) the WKV splits each head's
+key dim K over ``model``, as ``cache_specs`` splits the ``wkv`` state
+(B, H, K/tp, 64): its output is a sum over k of terms that read r_k,
+k_k, the decay w_k and u_k with the whole v, so each rank runs the
+recurrence on its keys and state block and one sum over ``model``
+completes the output; the state never moves.  The group norm, the gate
+``g`` (``wg``'s column block) and ``wo`` (its row block) follow the sum.
+The rules' column blocks of ``wr``, ``wk``, ``wd2`` and ``w0`` are whole
+heads, not key blocks, so those are taken whole and the rank keeps its
+key columns; ``wv`` is taken whole (every rank needs every value
+channel), and so are the small mixing weights ``tm_w1``, ``tm_w2`` and
+``wd1``.  ChannelMix is column-parallel in ``wk`` and ``wr`` and
+row-parallel in ``wv``, its output gathered over ``model``.  The
+token-shift states ``tm_x``/``cm_x`` are stored as the rank's channel
+block and gathered where they are read.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import parallel
 from repro_torch.models import layers
 
 HEAD_K = 64
@@ -61,6 +79,12 @@ def _group_norm(p, x: torch.Tensor, h: int) -> torch.Tensor:
     xs = ((xs - mu) * torch.rsqrt(var + 1e-5)).reshape(b, t, d)
     out = xs * (1.0 + p["scale"].float()) + p["bias"].float()
     return out.to(x.dtype)
+
+
+def _last(x: torch.Tensor) -> torch.Tensor:
+    """x's last token (B, D) in storage of its own: a state that is a view
+    would keep the whole sequence's activations alive."""
+    return x[:, -1, :].clone()
 
 
 def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
@@ -101,7 +125,7 @@ def wkv_chunked(r, k, v, w, u, state, *, chunk: int = 32):
     n = (t + pad) // c
 
     def chunks(a):                                 # (N, B, C, H, K)
-        return a.float().reshape(b, n, c, h, kk).transpose(0, 1)
+        return a.float().reshape(b, n, c, h, -1).transpose(0, 1)
 
     rc, kc, vc, wc = (chunks(a) for a in (r, k, v, w))
     uf = u.float()
@@ -126,8 +150,29 @@ def wkv_chunked(r, k, v, w, u, state, *, chunk: int = 32):
         inter.append(torch.einsum("bchk,bhkv->bchv", rwe[j], state))
         state = w_all[j][..., None] * state + kv[j]
     out = torch.stack(inter) + intra + diag
-    out = out.transpose(0, 1).reshape(b, n * c, h, kk)
+    out = out.transpose(0, 1).reshape(b, n * c, h, v.shape[-1])
     return out[:, :t].to(r.dtype), state
+
+
+def _mix(p, x, state_x):
+    """The token shift's five mixes of ``x`` (r, k, v, w, g)."""
+    b, t, _ = x.shape
+    sx = _token_shift(x, state_x) - x
+    xw = x + sx * p["maa_base"]
+    lora = torch.tanh(layers.matmul(xw, p["tm_w1"]))       # (B, T, 5*32)
+    lora = lora.reshape(b, t, 5, LORA_MIX).permute(2, 0, 1, 3)
+    deltas = torch.einsum("sbtl,sld->sbtd", lora.float(),
+                          p["tm_w2"].float()).to(x.dtype)
+    mixed = x[None] + sx[None] * (p["maa"][:, None, None, :] + deltas)
+    return mixed.unbind(0)
+
+
+def _wkv(impl: str, r, k, v, w, u, state, chunk: int):
+    if impl == "scan":
+        return wkv_scan(r, k, v, w, u, state)
+    if impl == "chunked":
+        return wkv_chunked(r, k, v, w, u, state, chunk=chunk)
+    raise ValueError(impl)
 
 
 def timemix_apply(p, x, state_x, state_wkv, *, wkv_impl: str = "scan",
@@ -136,15 +181,7 @@ def timemix_apply(p, x, state_x, state_wkv, *, wkv_impl: str = "scan",
     K, K).  Returns (out, x's last token, new WKV state)."""
     b, t, d = x.shape
     h = d // HEAD_K
-    sx = _token_shift(x, state_x) - x
-
-    xw = x + sx * p["maa_base"]
-    lora = torch.tanh(layers.matmul(xw, p["tm_w1"]))       # (B, T, 5*32)
-    lora = lora.reshape(b, t, 5, LORA_MIX).permute(2, 0, 1, 3)
-    deltas = torch.einsum("sbtl,sld->sbtd", lora.float(),
-                          p["tm_w2"].float()).to(x.dtype)
-    mixed = x[None] + sx[None] * (p["maa"][:, None, None, :] + deltas)
-    xr, xk, xv, xw_, xg = mixed.unbind(0)
+    xr, xk, xv, xw_, xg = _mix(p, x, state_x)
 
     r = layers.matmul(xr, p["wr"]).reshape(b, t, h, HEAD_K)
     k = layers.matmul(xk, p["wk"]).reshape(b, t, h, HEAD_K)
@@ -157,17 +194,12 @@ def timemix_apply(p, x, state_x, state_wkv, *, wkv_impl: str = "scan",
     w = torch.exp(-torch.exp(dec)).reshape(b, t, h, HEAD_K)  # in (0, 1)
     # The decay is rounded to r's dtype before the WKV, as the reference
     # rounds it.
-    if wkv_impl == "scan":
-        out, new_wkv = wkv_scan(r, k, v, w.to(r.dtype), p["u"], state_wkv)
-    elif wkv_impl == "chunked":
-        out, new_wkv = wkv_chunked(r, k, v, w.to(r.dtype), p["u"],
-                                   state_wkv, chunk=chunk)
-    else:
-        raise ValueError(wkv_impl)
+    out, new_wkv = _wkv(wkv_impl, r, k, v, w.to(r.dtype), p["u"], state_wkv,
+                        chunk)
 
     out = _group_norm(p["ln_x"], out.reshape(b, t, d), h)
     out = layers.matmul(out * g, p["wo"])
-    return out, x[:, -1, :], new_wkv
+    return out, _last(x), new_wkv
 
 
 def channelmix_apply(p, x, state_x):
@@ -176,12 +208,100 @@ def channelmix_apply(p, x, state_x):
     xr = x + sx * p["maa_r"]
     kk = torch.square(torch.relu(layers.matmul(xk, p["wk"])))
     kv = layers.matmul(kk, p["wv"])
-    return torch.sigmoid(layers.matmul(xr, p["wr"])) * kv, x[:, -1, :]
+    return torch.sigmoid(layers.matmul(xr, p["wr"])) * kv, _last(x)
 
 
-def init_rwkv_state(batch: int, d: int, *, dtype, device) -> dict:
+def _key_cols(w: torch.Tensor, h: int, lo: int, n: int) -> torch.Tensor:
+    """Key columns ``lo .. lo + n - 1`` of every head of ``w`` (..., H *
+    64)."""
+    if n == HEAD_K:
+        return w
+    return w.reshape(*w.shape[:-1], h, HEAD_K)[..., lo:lo + n].reshape(
+        *w.shape[:-1], h * n)
+
+
+def timemix_mesh(p, x, state_x, state_wkv, lay, *, wkv_impl: str = "scan",
+                 chunk: int = 32):
+    """:func:`timemix_apply` of the residual stream ``x`` (B, T, D, whole
+    on every rank) on a mesh (see the module docstring).  ``state_x`` and
+    ``state_wkv`` are the rank's blocks, and so are the states
+    returned."""
+    b, t, d = x.shape
     h = d // HEAD_K
-    return {"tm_x": torch.zeros((batch, d), dtype=dtype, device=device),
-            "cm_x": torch.zeros((batch, d), dtype=dtype, device=device),
-            "wkv": torch.zeros((batch, h, HEAD_K, HEAD_K),
-                               dtype=torch.float32, device=device)}
+    xdim = (b, d)
+    split = lay.cache_dim("wkv", (b, h, HEAD_K, HEAD_K)) is not None
+    kl = HEAD_K // lay.tp if split else HEAD_K
+    lo = lay.tp_rank * kl if split else 0
+    whole = lay.local_weight
+    xr, xk, xv, xw_, xg = _mix(
+        {n: whole(p[n]) for n in ("maa_base", "maa", "tm_w1", "tm_w2")}, x,
+        lay.cache_whole(state_x, "tm_x", xdim))
+    # The rank's keys: a part of a sum over ``model`` where K splits.
+    enter = lay.to_full if split else (lambda a: a)
+    mine = (lambda w: lay.weight(w, None, whole=False)) if split else whole
+    r = layers.matmul(enter(xr), _key_cols(mine(p["wr"]), h, lo, kl))
+    k = layers.matmul(enter(xk), _key_cols(mine(p["wk"]), h, lo, kl))
+    v = layers.matmul(enter(xv), mine(p["wv"]))
+    dec = (_key_cols(mine(p["w0"]), h, lo, kl).float()
+           + torch.tanh(layers.matmul(enter(xw_), mine(p["wd1"]))).float()
+           @ _key_cols(mine(p["wd2"]), h, lo, kl).float())
+    w = torch.exp(-torch.exp(dec)).reshape(b, t, h, kl)
+    out, new_wkv = _wkv(wkv_impl, r.reshape(b, t, h, kl).float(),
+                        k.reshape(b, t, h, kl), v.reshape(b, t, h, HEAD_K),
+                        w.to(r.dtype), mine(p["u"])[:, lo:lo + kl],
+                        state_wkv, chunk)
+    if split:
+        out = lay.from_partial(out)
+    ln_x = {n: whole(p["ln_x"][n]) for n in ("scale", "bias")}
+    out = _group_norm(ln_x, out.to(r.dtype).reshape(b, t, d), h)
+    if lay.model_dim(p["wg"]) == 1 and lay.model_dim(p["wo"]) == 0:
+        g = F.silu(layers.matmul(lay.to_full(xg), lay.weight(p["wg"], 1)))
+        y = parallel.split(out, lay.tp_group, -1) * g
+        out = lay.from_partial(layers.matmul(y, lay.weight(p["wo"], 0)))
+    else:
+        g = F.silu(layers.matmul(xg, whole(p["wg"])))
+        out = layers.matmul(out * g, whole(p["wo"]))
+    return out, lay.cache_block(_last(x), "tm_x", xdim), new_wkv
+
+
+def channelmix_mesh(p, x, state_x, lay):
+    """:func:`channelmix_apply` of the residual stream ``x`` (whole on
+    every rank) on a mesh: column-parallel ``wk`` and ``wr``, row-parallel
+    ``wv`` where the rules split them, whole weights otherwise.
+    ``state_x`` and the state returned are the rank's blocks."""
+    b, _, d = x.shape
+    xdim = (b, d)
+    last = lay.cache_block(_last(x), "cm_x", xdim)
+    prev = lay.cache_whole(state_x, "cm_x", xdim)
+    if (lay.model_dim(p["wk"]), lay.model_dim(p["wv"]),
+            lay.model_dim(p["wr"])) != (1, 0, 1):
+        local = {k: lay.local_weight(p[k]) for k in channelmix_shapes(1, 1)}
+        return channelmix_apply(local, x, prev)[0], last
+    sx = _token_shift(x, prev) - x
+    xk = x + sx * lay.local_weight(p["maa_k"])
+    xr = x + sx * lay.local_weight(p["maa_r"])
+    kk = torch.square(torch.relu(layers.matmul(lay.to_full(xk),
+                                               lay.weight(p["wk"], 1))))
+    # The ranks' partial products summed, each rank keeping its channels.
+    kv = parallel.reduce_scatter_grad(
+        layers.matmul(kk, lay.weight(p["wv"], 0)), lay.tp_group, -1)
+    gate = torch.sigmoid(layers.matmul(lay.to_full(xr),
+                                       lay.weight(p["wr"], 1)))
+    return parallel.gather(gate * kv, lay.tp_group, -1, reduce=False), last
+
+
+def init_rwkv_state(batch: int, d: int, *, dtype, device, lay=None) -> dict:
+    """Zero states; with ``lay`` this rank's block of each
+    (``cache_specs``)."""
+    h = d // HEAD_K
+    shapes = {"tm_x": (batch, d), "cm_x": (batch, d),
+              "wkv": (batch, h, HEAD_K, HEAD_K)}
+    out = {}
+    for name, shape in shapes.items():
+        shape = list(shape)
+        dim = None if lay is None else lay.cache_dim(name, shape)
+        if dim is not None:
+            shape[dim] //= lay.tp
+        out[name] = torch.zeros(shape, dtype=torch.float32 if name == "wkv"
+                                else dtype, device=device)
+    return out

@@ -30,9 +30,12 @@ each rank runs its part through ``distributed.parallel``: attention,
 MLPs, experts, embedding and loss split over ``model``, the residual
 stream split along the sequence at the layer boundary where
 ``cfg.seq_shard`` (the reference's ``bnd``; training and prefill, when
-``model`` divides the sequence).  The ``attn``, ``lattn`` and ``moe``
-kinds run on a mesh; the recurrent kinds and the encoder-decoder raise
-there.
+``model`` divides the sequence).  Every block kind runs on a mesh: the
+recurrent ones (whose configs keep the stream replicated, ``seq_shard``
+False) split RWKV-6's WKV along each head's key dim and the RG-LRU's
+channels over ``model`` (``rwkv6.timemix_mesh``,
+``rglru.recurrent_block_mesh``), and each rank's recurrent state is its
+block of ``cache_specs``' split.
 """
 from __future__ import annotations
 
@@ -193,13 +196,10 @@ class Block(ParamTree):
         load-balance loss of a moe block, None for the others.  With
         ``lay`` (a mesh) ``x`` is the rank's residual stream."""
         cfg = self.cfg
-        if lay is not None and self.kind in ("rwkv", "rec"):
-            raise NotImplementedError(
-                f"{self.kind} blocks do not run on an LM mesh yet")
         if self.kind == "rwkv":
-            return self._rwkv(x, cache)
+            return self._rwkv(x, cache, lay)
         if self.kind == "rec":
-            return self._rec(x, cache, decode)
+            return self._rec(x, cache, decode, lay)
         h = norm(cfg, self.norm1, x, lay)
         if cache is None:
             a = attention.apply_attention(self.attn, h, spec=self.spec,
@@ -222,33 +222,49 @@ class Block(ParamTree):
             m = m + layers.mlp_apply(self.shared, h, cfg.mlp_type, lay)
         return x + m, aux, cache
 
-    def _rwkv(self, x, state):
+    def _rwkv(self, x, state, lay):
         """TimeMix, then ChannelMix; a new state from ``state`` (zeros for
         a full sequence, as the reference starts one)."""
         cfg = self.cfg
         if state is None:
             state = rwkv6.init_rwkv_state(x.shape[0], cfg.d_model,
-                                          dtype=x.dtype, device=x.device)
-        h = norm(cfg, self.norm1, x)
-        tm_out, tm_x, wkv = rwkv6.timemix_apply(
-            self.tm, h, state["tm_x"], state["wkv"], wkv_impl=cfg.wkv_impl)
+                                          dtype=x.dtype, device=x.device,
+                                          lay=lay)
+        h = norm(cfg, self.norm1, x, lay)
+        if lay is None:
+            tm_out, tm_x, wkv = rwkv6.timemix_apply(
+                self.tm, h, state["tm_x"], state["wkv"],
+                wkv_impl=cfg.wkv_impl)
+        else:
+            tm_out, tm_x, wkv = rwkv6.timemix_mesh(
+                self.tm, h, state["tm_x"], state["wkv"], lay,
+                wkv_impl=cfg.wkv_impl)
         x = x + tm_out
-        h = norm(cfg, self.norm2, x)
-        cm_out, cm_x = rwkv6.channelmix_apply(self.cm, h, state["cm_x"])
+        h = norm(cfg, self.norm2, x, lay)
+        if lay is None:
+            cm_out, cm_x = rwkv6.channelmix_apply(self.cm, h, state["cm_x"])
+        else:
+            cm_out, cm_x = rwkv6.channelmix_mesh(self.cm, h, state["cm_x"],
+                                                 lay)
         return x + cm_out, None, {"tm_x": tm_x, "cm_x": cm_x, "wkv": wkv}
 
-    def _rec(self, x, state, decode: bool):
+    def _rec(self, x, state, decode: bool, lay):
         cfg = self.cfg
         if state is None:
             state = rglru.init_recurrent_state(
                 x.shape[0], cfg.rnn_width, cfg.conv_width, dtype=x.dtype,
-                device=x.device)
-        h = norm(cfg, self.norm1, x)
-        r, state = rglru.recurrent_block_apply(self.rec, h, state,
-                                               decode=decode)
+                device=x.device, lay=lay)
+        h = norm(cfg, self.norm1, x, lay)
+        if lay is None:
+            r, state = rglru.recurrent_block_apply(self.rec, h, state,
+                                                   decode=decode)
+        else:
+            r, state = rglru.recurrent_block_mesh(self.rec, h, state, lay,
+                                                  decode=decode)
         x = x + r
-        h = norm(cfg, self.norm2, x)
-        return x + layers.mlp_apply(self.mlp, h, cfg.mlp_type), None, state
+        h = norm(cfg, self.norm2, x, lay)
+        return x + layers.mlp_apply(self.mlp, h, cfg.mlp_type, lay), None, \
+            state
 
 
 class Transformer(nn.Module):
@@ -333,12 +349,14 @@ def layout(cfg: ModelConfig, ctx, seq_len: int, *, decode: bool = False):
     """The ``parallel.Layout`` of a pass over ``seq_len`` tokens on
     ``ctx`` (None without one): the residual stream split along the
     sequence where ``cfg.seq_shard`` and ``model`` divides it, the
-    reference's ``bnd`` (never in decode)."""
+    reference's ``bnd`` (never in decode, nor in a stack with recurrent
+    blocks, which read the whole sequence)."""
     if ctx is None:
         return None
     tp = ctx.axis_size(ctx.tp_axis)
-    return parallel.Layout(ctx, cfg.seq_shard and not decode and tp > 1
-                           and seq_len % tp == 0)
+    recurrent = {"rwkv", "rec"} & set(cfg.block_pattern)
+    return parallel.Layout(ctx, cfg.seq_shard and not recurrent
+                           and not decode and tp > 1 and seq_len % tp == 0)
 
 
 def backbone(params: Transformer, x: torch.Tensor, *, caches=None,
@@ -431,6 +449,17 @@ def loss_fn(params: Transformer, batch: dict, *,
                                          batch["mask"],
                                          valid_vocab=cfg.vocab_size)
         return ce + aux, {"ce": ce, "aux": aux}
+    return mesh_loss(params, h, batch, aux, lay)
+
+
+def mesh_loss(params, h: torch.Tensor, batch: dict, aux: torch.Tensor,
+              lay):
+    """The loss on a mesh from the final-normed stream ``h``: the
+    cross-entropy over the rank's vocab slice where ``model`` splits the
+    vocab, ``aux`` (the routers' loss) added at its share of the data
+    axes.  Returns the rank's share of the sum over the data axes and
+    the whole batch's metrics."""
+    cfg = params.cfg
     w, lo, split = _head_local(params, lay)
     targets, mask = batch["targets"], batch["mask"]
     count = lay.dp_sum(torch.sum(mask.float()))
@@ -447,7 +476,7 @@ def loss_fn(params: Transformer, batch: dict, *,
                                          count=count)
         if lay.seq:
             ce = parallel.reduce_from(ce, lay.tp_group)
-    dp = ctx.dp_size
+    dp = lay.ctx.dp_size
     loss = ce + aux / dp
     ce_all = lay.dp_sum(ce.detach())
     aux_all = lay.dp_sum(aux.detach()) / dp
@@ -459,11 +488,11 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     dt = DTYPES[cfg.dtype]
     if kind == "rwkv":
         return rwkv6.init_rwkv_state(batch, cfg.d_model, dtype=dt,
-                                     device=device)
+                                     device=device, lay=lay)
     if kind == "rec":
         return rglru.init_recurrent_state(batch, cfg.rnn_width,
                                           cfg.conv_width, dtype=dt,
-                                          device=device)
+                                          device=device, lay=lay)
     return attention.init_cache(batch, max_len,
                                 attn_spec(cfg, local=kind == "lattn"),
                                 dtype=dt, device=device, lay=lay)
@@ -472,7 +501,8 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                 device, ctx=None) -> list:
     """One cache a layer: a KV cache or a recurrent state (with ``ctx``,
-    the rank's block of the KV slots; ``batch`` is the rank's)."""
+    the rank's block of each leaf by ``cache_specs``; ``batch`` is the
+    rank's)."""
     lay = layout(cfg, ctx, 1, decode=True)
     return [init_block_cache(cfg, cfg.block_kind(i), batch, max_len,
                              device=device, lay=lay)

@@ -165,3 +165,79 @@ def checkpoint(inp: dict, tmp: str) -> dict:
     out["local_shapes"] = (tuple(state.mu[key].to_local().shape),
                            tuple(state2.mu[key].to_local().shape))
     return out
+
+
+
+def _cache_blocks(local, whole, spec, mesh) -> tuple[int, list]:
+    """(leaves checked, mismatches): each leaf of the rank's cache tree
+    ``local`` against the block of the whole tree's leaf that its spec
+    (``spec``, the tree ``cache_specs`` gave for ``whole``) keeps."""
+    from repro_torch.distributed.sharding import axes_size
+    if hasattr(whole, "k") and hasattr(whole, "v"):
+        local, whole = ({"k": t.k, "v": t.v} for t in (local, whole))
+    if isinstance(whole, (dict, list, tuple)):
+        keys = list(whole) if isinstance(whole, dict) else \
+            range(len(whole))
+        n, bad = 0, []
+        for k in keys:
+            dn, dbad = _cache_blocks(local[k], whole[k], spec[k], mesh)
+            n, bad = n + dn, bad + dbad
+        return n, bad
+    want = tuple(d // (1 if p is None else axes_size(mesh, p))
+                 for d, p in zip(whole.shape, spec))
+    got = tuple(local.shape)
+    return 1, [] if got == want else [(got, want)]
+
+
+def family(inp: dict, tmp: str) -> dict:
+    """One architecture on each mesh of ``inp["meshes"]`` ((data, model),
+    config overrides, state): the loss and every gradient of a batch,
+    greedy ``serve`` tokens, two greedy tokens of the prefill and decode
+    bundles and their caches against the ``cache_specs`` blocks, then
+    one ``train_bundle`` step's metrics."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh, serve_lm, steps
+    from repro_torch.models import encdec, transformer
+    from repro_torch.optim.adamw import AdamW
+    arch, batch, kw = inp["arch"], inp["batch"], inp["serve"]
+    out = {}
+    for name, (shape, overrides, state) in inp["meshes"].items():
+        ctx = mesh.make_small_context(*shape)
+        model, params = _model(arch, overrides, state, ctx)
+        cfg = params.cfg
+        loss, metrics = model.loss_fn(params, steps.local_batch(batch, ctx),
+                                      ctx)
+        loss.backward()
+        grads = {k: p.grad.full_tensor()
+                 for k, p in params.named_parameters()}
+        for p in params.parameters():
+            p.grad = None
+        tokens, _ = serve_lm.serve(arch, params=params, ctx=ctx,
+                                   verbose=False, **kw)
+        # the prefill and decode bundles: two greedy tokens, the caches
+        b, cache_len = kw["batch"], kw["max_len"]
+        prefill = steps.prefill_bundle(cfg, ShapeConfig(
+            "p", cache_len, b, "prefill"), device="cpu", ctx=ctx)
+        decode = steps.decode_bundle(cfg, ShapeConfig(
+            "d", cache_len, b, "decode"), device="cpu", ctx=ctx)
+        first, caches = prefill.fn(params, serve_lm.model_inputs(
+            cfg, b, kw["prompt_len"], kw["seed"], "cpu"))
+        second, caches = decode.fn(params, first, caches)
+        if cfg.is_encdec:
+            whole = encdec.empty_caches(cfg, kw["batch"], kw["max_len"],
+                                        device="meta")
+        else:
+            whole = transformer.init_caches(cfg, kw["batch"], kw["max_len"],
+                                            device="meta")
+        blocks = _cache_blocks(caches, whole, sharding.cache_specs(
+            whole, ctx, tp=ctx.tp_axis, dp_axes=ctx.dp_axes), ctx)
+        opt = AdamW()
+        bundle = steps.train_bundle(cfg, ShapeConfig(
+            "t", batch["inputs"].shape[1], batch["inputs"].shape[0],
+            "train"), opt, device="cpu", ctx=ctx)
+        _, _, step = bundle.fn(params, opt.init(params, ctx), batch)
+        out[name] = {"ce": metrics["ce"], "grads": grads, "tokens": tokens,
+                     "bundle_tokens": torch.cat([first, second], 1),
+                     "cache_blocks": blocks, "step": step}
+    return out

@@ -2,10 +2,11 @@
 train_4k on 8 ranks, ``tests/test_distribution.py``) on a fake process
 group of 8 ranks, and a PH cell.
 
-The LM cell runs the whole train step on fake tensors on the (2, 4)
-mesh; its roofline must have compute time, and the parameter bytes the
-memory tracker sees on the rank must be the sum of the rank's blocks of
-every leaf as the sharding rules split them.  The tiled PH cell runs
+The LM cells run the whole step on fake tensors on the (2, 4) mesh:
+gemma_7b's train step, whose roofline must have compute time, and one
+cell of each of rwkv6_3b, recurrentgemma_2b and whisper_small; in each
+the parameter bytes the memory tracker sees on the rank must be the sum
+of the rank's blocks of every leaf as the sharding rules split them.  The tiled PH cell runs
 ``per_tile_cost`` at one tile under two image sizes.  Each runs in a
 subprocess (the fake group is the process's default group), on the host
 (``--device cpu``): without it the CLI takes the card, and raises where
@@ -24,7 +25,6 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.distributed import sharding
 from repro_torch.launch import steps
-from repro_torch.models import transformer
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -44,11 +44,10 @@ def _dryrun(tmp_path, *args) -> dict:
     return json.loads((tmp_path / "cell.json").read_text())
 
 
-def test_dryrun_lm_cell_on_8_ranks(tmp_path):
-    rec = _dryrun(tmp_path, "--arch", "gemma_7b", "--shape", "train_4k")
-    assert rec["trace_ok"] and rec["roofline"]["compute_s"] > 0
-    assert rec["devices"] == 8 and rec["mesh"] == "2x4"
-    cfg = get_config("gemma_7b")
+def _rank_param_bytes(arch: str) -> int:
+    """The bytes of the rank's block of every parameter on the (2, 4)
+    mesh, as the sharding rules split them."""
+    cfg = get_config(arch)
     mesh = collections.namedtuple("Mesh", ["shape"])(
         {"data": 2, "model": 4})
     shapes = steps.param_specs(cfg)
@@ -59,9 +58,15 @@ def test_dryrun_lm_cell_on_8_ranks(tmp_path):
         for part in specs[name]:
             if part is not None:
                 blocks *= sharding.axes_size(mesh, part)
-        want += leaf.numel() // blocks * transformer.leaf_dtype(
-            cfg, name).itemsize
-    assert rec["memory"]["parameters"] == want
+        want += leaf.numel() // blocks * leaf.dtype.itemsize
+    return want
+
+
+def test_dryrun_lm_cell_on_8_ranks(tmp_path):
+    rec = _dryrun(tmp_path, "--arch", "gemma_7b", "--shape", "train_4k")
+    assert rec["trace_ok"] and rec["roofline"]["compute_s"] > 0
+    assert rec["devices"] == 8 and rec["mesh"] == "2x4"
+    assert rec["memory"]["parameters"] == _rank_param_bytes("gemma_7b")
     assert rec["memory"]["peak_bytes"] >= sum(
         rec["memory"][k] for k in ("parameters", "optimizer_state"))
     # the mesh's collectives: FSDP gathers, TP reductions, gradient
@@ -70,6 +75,26 @@ def test_dryrun_lm_cell_on_8_ranks(tmp_path):
         set(rec["collectives"])
     assert rec["model_flops"] > 0 and rec["flops"] > 0
     assert rec["params_total"] == rec["params_active"] > 8e9
+
+
+# One cell of each family that runs on a mesh since the recurrent blocks
+# and the encoder-decoder do: rwkv6's decode against the key-split WKV
+# states, recurrentgemma's prefill through its RG-LRU channels and its
+# windowed query-sequence route, whisper's decode against its cross
+# caches.
+FAMILY_CELLS = (("rwkv6_3b", "decode_32k"),
+                ("recurrentgemma_2b", "prefill_32k"),
+                ("whisper_small", "decode_32k"))
+
+
+@pytest.mark.parametrize("arch,shape", FAMILY_CELLS)
+def test_dryrun_family_cell_on_8_ranks(tmp_path, arch, shape):
+    rec = _dryrun(tmp_path, "--arch", arch, "--shape", shape)
+    assert rec["trace_ok"] and "error" not in rec
+    assert rec["devices"] == 8 and rec["mesh"] == "2x4"
+    assert rec["memory"]["peak_bytes"] > rec["memory"]["parameters"] > 0
+    assert rec["memory"]["parameters"] == _rank_param_bytes(arch)
+    assert "all-reduce" in rec["collectives"] and rec["flops"] > 0
 
 
 def test_dryrun_tiled_ph_cell(tmp_path):
