@@ -253,19 +253,21 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
              host ops, the host ops the sharded step adds most to) and
              its NCCL kernels; dbrx at
              ``MOE_DEPTH``'s 8 layers: a greedy prefill (the all_to_all
-             path, one call a layer) and decode steps (the psum path)
-             against the caches ``cache_specs`` splits along the sequence,
-             tokens equal and logits within ``LOGIT_ATOL``/``LOGIT_RTOL``
-             of the same without the mesh, NCCL kernels from the profile;
+             path, one flash call a layer) and decode steps (the psum
+             path, no flash call) against the caches ``cache_specs``
+             splits along the sequence, tokens equal and logits within
+             ``LOGIT_ATOL``/``LOGIT_RTOL`` of the same without the mesh,
+             NCCL kernels from the profile;
              rwkv6_3b, recurrentgemma_2b and whisper_small at full width
              and depth (``MESH_FAMILIES``): a greedy prefill and
              ``MESH_SERVE``'s decode steps on the mesh against the same
-             without it (tokens equal, logits within ``LOGIT_ATOL``/
-             ``LOGIT_RTOL``, held in ``FAMILY_LIMITS``' decode dtype: the
-             recurrent two on float32 copies, their bfloat16 runs read),
-             the mesh prefill's flash launches (0, 8, 36) equal to the
-             unsharded one's, its first and last flash call held to plain,
-             prefill and decode-step ms and peak memory both ways;
+             without it (tokens equal, logits within the limit of
+             ``FAMILY_LIMITS``' decode dtype: the recurrent two on
+             float32 copies, their bfloat16 runs read at ``LOGIT_ATOL``/
+             ``LOGIT_RTOL``), the prefill's flash launches (0, 8, 36) on
+             and off the mesh, none in the decode steps, the first and
+             last mesh flash call held to plain, prefill and
+             decode-step ms and peak memory both ways;
              whisper_small's sharded ``train_bundle`` step in turns with
              the unsharded one (``MESH_TRAIN_FAMILY``; loss and grad norm
              as above, 72 flash launches a step each way); after these
@@ -551,9 +553,10 @@ MESH_SERVE = dict(batch=4, prompt_len=512, gen_len=8, max_len=1024)
 # from seed 0), a greedy prefill and MESH_SERVE's decode steps on the mesh
 # against the same without it, and the flash launches of one prefill
 # (recurrentgemma's 8 local-attention layers, whisper's 36 calls, none in
-# rwkv6).  Each is held in FAMILY_LIMITS' decode dtype: rwkv6 and
-# recurrentgemma on float32 copies of the weights (their bfloat16 runs are
-# read beside).
+# rwkv6) and of the decode steps (none).  Each is held in FAMILY_LIMITS'
+# decode dtype at the limit it gives that dtype: rwkv6 and recurrentgemma
+# on float32 copies of the weights (their bfloat16 runs are read beside,
+# at LOGIT_ATOL/LOGIT_RTOL).
 MESH_FAMILIES = {"rwkv6_3b": 0, "recurrentgemma_2b": 8, "whisper_small": 36}
 # whisper_small's sharded train_bundle step in turns with the unsharded
 # one: its decoder's 448-token context (the published model's), a global
@@ -3182,7 +3185,7 @@ def _wkv_timings(calls, rwkv6) -> dict:
 def _rglru_timings(calls, rglru) -> dict:
     out = {}
     if "rglru" in calls:
-        (p, x, h0), _ = calls["rglru"]
+        (p, x, h0, *_), _ = calls["rglru"]
         a, b = rglru._gated(p, x.float())
         out["rglru"] = {
             "shape": list(x.shape),
@@ -3962,9 +3965,9 @@ def mesh_greedy(model, params, inputs, ctx, reset_counts,
                 read_counts) -> dict:
     """A greedy prefill of ``inputs`` and ``MESH_SERVE``'s decode steps
     (on the mesh of ``ctx``, or without one): the logits of the prompt's
-    last token and of each step, the tokens, the caches, the prefill's
-    flash launches, prefill ms, mean decode-step ms and the peak
-    memory."""
+    last token and of each step, the tokens, the caches, the flash
+    launches of the prefill and of all decode steps, prefill ms, mean
+    decode-step ms and the peak memory."""
     import torch
     from repro_torch.launch import steps
     kw = MESH_SERVE
@@ -3988,6 +3991,8 @@ def mesh_greedy(model, params, inputs, ctx, reset_counts,
     torch.cuda.synchronize()
     return {"logits": torch.cat(outs, 1), "tokens": torch.cat(toks, 1),
             "caches": caches, "flash_launches": flash,
+            "decode_flash_launches": read_counts()["flash_attention"]
+            - flash,
             "prefill_ms": prefill_ms,
             "decode_step_ms": (time.perf_counter() - t0) * 1e3
             / (kw["gen_len"] - 1),
@@ -3999,7 +4004,8 @@ def mesh_serve(ctx, dev, reset_counts, read_counts) -> dict:
     without the mesh, then the same weights placed on it (views on one
     rank) through the all_to_all path (prefill) and the psum path
     (decode) against the caches ``cache_specs`` splits; tokens equal,
-    logits within ``LOGIT_ATOL``/``LOGIT_RTOL``."""
+    logits within ``LOGIT_ATOL``/``LOGIT_RTOL``, one flash launch a layer
+    in the prefill and none in the decode steps, both ways."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.distributed import sharding
@@ -4047,6 +4053,8 @@ def mesh_serve(ctx, dev, reset_counts, read_counts) -> dict:
            "logit_tol_ratio": read["tol_ratio"],
            "paths": paths, "flash_launches": got["flash_launches"],
            "unsharded_flash_launches": want["flash_launches"],
+           "decode_flash_launches": [got["decode_flash_launches"],
+                                     want["decode_flash_launches"]],
            "nccl_launches": prof["nccl_launches"], "mesh_ms_profiled": ms,
            "cache_spec_k": list(sharding.cache_specs(
                caches, ctx)[0]["k"]),
@@ -4056,7 +4064,8 @@ def mesh_serve(ctx, dev, reset_counts, read_counts) -> dict:
         raise AssertionError(f"mesh serve != unsharded: {out}")
     if paths != {"a2a": depth, "psum": depth * (kw["gen_len"] - 1)} or \
             out["flash_launches"] != depth or \
-            out["unsharded_flash_launches"] != depth:
+            out["unsharded_flash_launches"] != depth or \
+            out["decode_flash_launches"] != [0, 0]:
         raise AssertionError(f"routes or launches: {out}")
     del params, caches, got, want
     torch.cuda.empty_cache()
@@ -4068,11 +4077,12 @@ def mesh_family_one(ctx, dev, arch: str, reset_counts, read_counts) -> dict:
     with and without the mesh from the same weights and prompts (and
     frames), in turns (off, on, on, off: the same storage, placed on the
     mesh and not; a float32 copy off and on), held in ``FAMILY_LIMITS``'
-    decode dtype (equal tokens, logits within ``LOGIT_ATOL``/
-    ``LOGIT_RTOL``) and read in bfloat16; the mesh prefill's flash
-    launches equal the unsharded one's and
-    ``MESH_FAMILIES``' count, the first mesh run's first and last flash
-    call held to the plain version."""
+    decode dtype at its limit (equal tokens, logits within the limit
+    ``FAMILY_LIMITS`` gives that dtype) and read in bfloat16 at
+    ``LOGIT_ATOL``/``LOGIT_RTOL``; the prefill's flash launches on and off
+    the mesh equal ``MESH_FAMILIES``' count and the decode steps' are 0,
+    the first mesh run's first and last flash call held to the plain
+    version."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.launch import serve_lm
@@ -4080,7 +4090,7 @@ def mesh_family_one(ctx, dev, arch: str, reset_counts, read_counts) -> dict:
 
     t0 = time.perf_counter()
     cfg = get_config(arch)
-    held_dtype = FAMILY_LIMITS[arch]["decode"][0]
+    held_dtype, *held_tol = FAMILY_LIMITS[arch]["decode"]
     flash = MESH_FAMILIES[arch]
     kw = MESH_SERVE
     model = Model(cfg)
@@ -4110,12 +4120,13 @@ def mesh_family_one(ctx, dev, arch: str, reset_counts, read_counts) -> dict:
             out.append((label, r))
         return out
 
-    def reading(runs) -> dict:
+    def reading(runs, tol) -> dict:
         want = runs[0][1]
         read = {"tokens_equal": True, "logits_bitwise_equal": True,
-                "logit_max_abs_diff": 0.0, "logit_tol_ratio": 0.0}
+                "logit_max_abs_diff": 0.0, "logit_tol_ratio": 0.0,
+                "logit_tol": list(tol)}
         for _, got in runs[1:]:
-            r = logit_reading(got["logits"], want["logits"])
+            r = logit_reading(got["logits"], want["logits"], tol)
             read["tokens_equal"] &= bool(torch.equal(got["tokens"],
                                                      want["tokens"]))
             read["logits_bitwise_equal"] &= bool(torch.equal(
@@ -4124,8 +4135,8 @@ def mesh_family_one(ctx, dev, arch: str, reset_counts, read_counts) -> dict:
                                              r["max_abs"])
             read["logit_tol_ratio"] = max(read["logit_tol_ratio"],
                                           r["tol_ratio"])
-        for key in ("flash_launches", "prefill_ms", "decode_step_ms",
-                    "peak_bytes"):
+        for key in ("flash_launches", "decode_flash_launches", "prefill_ms",
+                    "decode_step_ms", "peak_bytes"):
             for label in ("unsharded", "mesh"):
                 read[f"{label}_{key}"] = [r[key] for lbl, r in runs
                                           if lbl == label]
@@ -4135,11 +4146,13 @@ def mesh_family_one(ctx, dev, arch: str, reset_counts, read_counts) -> dict:
     if held_dtype != cfg.dtype:
         wide_model = Model(cfg.replace(dtype=held_dtype))
         wide = wide_model.load(params.state_dict())
-        dtypes[held_dtype] = reading(turns(wide_model, wide, served=False))
+        dtypes[held_dtype] = reading(turns(wide_model, wide, served=False),
+                                     held_tol)
         del wide
         torch.cuda.empty_cache()
     runs = turns(model, params, served=True)
-    dtypes[cfg.dtype] = reading(runs)
+    dtypes[cfg.dtype] = reading(runs, held_tol if held_dtype == cfg.dtype
+                                else (LOGIT_ATOL, LOGIT_RTOL))
     held = dtypes[held_dtype]
     out = {"arch": arch, "layers": cfg.num_layers,
            "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model,
@@ -4149,10 +4162,13 @@ def mesh_family_one(ctx, dev, arch: str, reset_counts, read_counts) -> dict:
                                     {})}
     if not held["tokens_equal"] or held["logit_tol_ratio"] > 1.0:
         raise AssertionError(f"{arch}: mesh greedy != unsharded: {out}")
-    launches = dtypes[cfg.dtype]
-    if set(launches["mesh_flash_launches"]
-           + launches["unsharded_flash_launches"]) != {flash}:
-        raise AssertionError(f"{arch}: flash launches a prefill: {out}")
+    for launches in dtypes.values():
+        if set(launches["mesh_flash_launches"]
+               + launches["unsharded_flash_launches"]) != {flash} or set(
+                launches["mesh_decode_flash_launches"]
+                + launches["unsharded_decode_flash_launches"]) != {0}:
+            raise AssertionError(f"{arch}: flash launches a prefill or in "
+                                 f"decode: {out}")
     out["mesh_flash_launches"] = flash
     del runs, params
     torch.cuda.empty_cache()

@@ -15,8 +15,8 @@ The counterpart of ``examples/distributed_ph.py`` through
 
 The work log (``--work-log``, under ``build/`` by default) starts empty,
 so each run computes every image and recovers from its injected failure.
-``--merge-impl`` defaults to the Boruvka merge, whose best-edge rounds
-run the kernel on the card (the default scan merge is sequential).
+It takes the Boruvka merge, whose best-edge rounds run the kernel on
+the card (the default scan merge is sequential).
 ``main`` returns what it prints, with every image's summary.
 """
 import argparse
@@ -35,15 +35,13 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
-    ap.add_argument("--merge-impl", default="boruvka",
-                    choices=("scan", "boruvka"))
     ap.add_argument("--work-log",
                     default=str(ROOT / "build" / "ph_worklog_torch.jsonl"))
     args = ap.parse_args(argv)
 
     config = PHConfig(max_features=8192, max_candidates=32768,
                       filter_level=FilterLevel.STD,
-                      merge_impl=args.merge_impl)
+                      merge_impl="boruvka")
     engine = PHEngine(config, device=args.device)
     log = Path(args.work_log)
     log.parent.mkdir(parents=True, exist_ok=True)

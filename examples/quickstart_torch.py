@@ -9,11 +9,11 @@ generates a synthetic star field (paper §6.2 recipe), computes its
 persistence diagram through the ``repro_torch.ph`` facade, deliberately
 starting from undersized capacities so the engine's overflow auto-regrow
 kicks in, validates the result against the classical union-find oracle
-and prints the most persistent objects.  On the card phase A and the
-Boruvka merge's best-edge rounds run the hand-written kernels (the
-default scan merge is sequential, so ``--merge-impl`` defaults to
-``boruvka``; the diagram is the same either way).  ``main`` returns what
-it prints, with the diagram's rows.
+and prints the most persistent objects.  It takes the Boruvka merge, so
+that on the card phase A and the merge's best-edge rounds run the
+hand-written kernels (the default scan merge is sequential; the diagram
+is the same either way).  ``main`` returns what it prints, with the
+diagram's rows.
 """
 import argparse
 import sys
@@ -33,8 +33,6 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
-    ap.add_argument("--merge-impl", default="boruvka",
-                    choices=("scan", "boruvka"))
     args = ap.parse_args(argv)
 
     img = astro.generate_image(image_id=42, size=256)
@@ -45,7 +43,7 @@ def main(argv=None) -> dict:
     # Undersized on purpose: the engine re-dispatches at doubled capacities
     # until the diagram fits.
     engine = PHEngine(PHConfig(max_features=512, max_candidates=1024,
-                               merge_impl=args.merge_impl),
+                               merge_impl="boruvka"),
                       device=args.device)
     result = engine.run(img)
     out.update(components=int(result.diagram.count),

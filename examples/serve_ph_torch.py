@@ -8,9 +8,9 @@ boots an in-process :class:`repro_torch.serving.PHServer` over one warmed
 engine, submits a burst of mixed-shape star fields from a few client
 threads (request-at-a-time traffic, not a prepared batch), and prints
 per-bucket latency percentiles.  Each future resolves to exactly what
-``engine.run(image)`` would return.  ``--merge-impl`` defaults to the
-Boruvka merge, whose best-edge rounds run the kernel on the card (the
-default scan merge is sequential).  ``main`` returns what it prints,
+``engine.run(image)`` would return.  It takes the Boruvka merge, whose
+best-edge rounds run the kernel on the card (the default scan merge is
+sequential).  ``main`` returns what it prints,
 with each served request's image id, size and result.
 
 For the CLI twin see ``python -m repro_torch.launch.ph_serve``.
@@ -34,11 +34,9 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
-    ap.add_argument("--merge-impl", default="boruvka",
-                    choices=("scan", "boruvka"))
     args = ap.parse_args(argv)
 
-    config = PHConfig(merge_impl=args.merge_impl,
+    config = PHConfig(merge_impl="boruvka",
                       serve=ServeSpec(buckets=(64, 128), batch_cap=4,
                                       max_queue=32, admission="reject"))
     engine = PHEngine(config, device=args.device)

@@ -15,7 +15,7 @@ by one step in decode.
 
 Decode state per layer: ``{"conv": (B, W-1, R), "h": (B, R) float32}``.
 
-On an LM mesh (:func:`recurrent_block_mesh`, the residual stream
+On an LM mesh (:func:`recurrent_block_apply` with a layout, the stream
 replicated over ``model``) the rank holds a block of the R channels, as
 the sharding rules split ``w_in``, ``w_gate``, ``conv_w``, ``wa``, ``wx``
 (columns), ``w_out`` (rows) and the ``conv``/``h`` states: the conv, the
@@ -116,42 +116,32 @@ def rglru_step(p, x: torch.Tensor, h0: torch.Tensor, gates_in=None):
 
 
 def recurrent_block_apply(p, x: torch.Tensor, state: dict, *,
-                          decode: bool = False):
-    """x: (B, T, D) -> (B, T, D); ``state`` {"conv", "h"} -> the new one."""
+                          decode: bool = False, lay=None):
+    """x: (B, T, D) -> (B, T, D); ``state`` {"conv", "h"} -> the new one.
+    With ``lay`` (a mesh; see the module docstring) ``x`` is the residual
+    stream, whole on every rank, and the states taken and returned are
+    the rank's blocks; where the rules do not split the channels, the
+    rank takes the whole weights: the single-device arithmetic."""
+    split = lay is not None and lay.model_dim(p["w_in"]) == 1
+    gates_in = None
+    if split:
+        x = lay.to_full(x)
+        p = dict({k: lay.weight(p[k], 1) for k in ("w_in", "w_gate",
+                                                   "conv_w", "wa", "wx")},
+                 **{k: lay.weight(p[k], 0) for k in ("conv_b", "ba", "bx",
+                                                      "lam", "w_out")})
+    elif lay is not None:
+        p = {k: lay.local_weight(p[k]) for k in recurrent_shapes(1, 1, 1)}
     gate = F.gelu(layers.matmul(x, p["w_gate"]), approximate="tanh")
     xin = layers.matmul(x, p["w_in"])
     conv, conv_state = _causal_conv1d(p, xin, state["conv"])
-    if decode:
-        y, h = rglru_step(p, conv, state["h"])
-    else:
-        y, h = rglru(p, conv, state["h"])
-    out = layers.matmul(y * gate, p["w_out"])
-    return out, {"conv": conv_state, "h": h}
-
-
-def recurrent_block_mesh(p, x: torch.Tensor, state: dict, lay, *,
-                         decode: bool = False):
-    """:func:`recurrent_block_apply` of the residual stream ``x`` (whole
-    on every rank) on a mesh: the rank's block of the channels where the
-    rules split them (see the module docstring), whole weights
-    otherwise.  ``state`` and the state returned are the rank's
-    blocks."""
-    if lay.model_dim(p["w_in"]) != 1:
-        local = {k: lay.local_weight(p[k]) for k in recurrent_shapes(1, 1, 1)}
-        return recurrent_block_apply(local, x, state, decode=decode)
-    hin = lay.to_full(x)
-    col = {k: lay.weight(p[k], 1) for k in ("w_in", "w_gate", "conv_w",
-                                             "wa", "wx")}
-    lp = dict(col, **{k: lay.weight(p[k], 0)
-                      for k in ("conv_b", "ba", "bx", "lam")})
-    gate = F.gelu(layers.matmul(hin, lp["w_gate"]), approximate="tanh")
-    conv, conv_state = _causal_conv1d(lp, layers.matmul(hin, lp["w_in"]),
-                                      state["conv"])
-    whole = parallel.gather(conv, lay.tp_group, -1, reduce=True)
+    if split:
+        gates_in = parallel.gather(conv, lay.tp_group, -1, reduce=True)
     step = rglru_step if decode else rglru
-    y, h = step(lp, conv, state["h"], whole)
-    out = lay.from_partial(layers.matmul(y * gate,
-                                         lay.weight(p["w_out"], 0)))
+    y, h = step(p, conv, state["h"], gates_in)
+    out = layers.matmul(y * gate, p["w_out"])
+    if split:
+        out = lay.from_partial(out)
     return out, {"conv": conv_state, "h": h}
 
 

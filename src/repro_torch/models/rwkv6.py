@@ -19,17 +19,17 @@ chosen by ``cfg.wkv_impl``:
 State per layer (decode): ``{"tm_x": (B, D), "cm_x": (B, D), "wkv": (B,
 H, 64, 64) float32}``; head size 64.
 
-On an LM mesh (:func:`timemix_mesh`, :func:`channelmix_mesh`; the
-residual stream replicated over ``model``) the WKV splits each head's
-key dim K over ``model``, as ``cache_specs`` splits the ``wkv`` state
-(B, H, K/tp, 64): its output is a sum over k of terms that read r_k,
-k_k, the decay w_k and u_k with the whole v, so each rank runs the
-recurrence on its keys and state block and one sum over ``model``
-completes the output; the state never moves.  The group norm, the gate
-``g`` (``wg``'s column block) and ``wo`` (its row block) follow the sum.
-The rules' column blocks of ``wr``, ``wk``, ``wd2`` and ``w0`` are whole
-heads, not key blocks, so those are taken whole and the rank keeps its
-key columns; ``wv`` is taken whole (every rank needs every value
+On an LM mesh (:func:`timemix_apply` with a layout,
+:func:`channelmix_mesh`; the residual stream replicated over ``model``)
+the WKV splits each head's key dim K over ``model``, as ``cache_specs``
+splits the ``wkv`` state (B, H, K/tp, 64): its output is a sum over k of
+terms that read r_k, k_k, the decay w_k and u_k with the whole v, so
+each rank runs the recurrence on its keys and state block and one sum
+over ``model`` completes the output; the state never moves.  The group
+norm, the gate ``g`` (``wg``'s column block) and ``wo`` (its row block)
+follow the sum.  The rules' column blocks of ``wr``, ``wk``, ``wd2`` and
+``w0`` are whole heads, not key blocks, so those are taken whole and the
+rank keeps its key columns; ``wv`` is taken whole (every rank needs every value
 channel), and so are the small mixing weights ``tm_w1``, ``tm_w2`` and
 ``wd1``.  ChannelMix is column-parallel in ``wk`` and ``wr`` and
 row-parallel in ``wv``, its output gathered over ``model``.  The
@@ -175,33 +175,6 @@ def _wkv(impl: str, r, k, v, w, u, state, chunk: int):
     raise ValueError(impl)
 
 
-def timemix_apply(p, x, state_x, state_wkv, *, wkv_impl: str = "scan",
-                  chunk: int = 32):
-    """x: (B, T, D); state_x: (B, D) the previous token; state_wkv: (B, H,
-    K, K).  Returns (out, x's last token, new WKV state)."""
-    b, t, d = x.shape
-    h = d // HEAD_K
-    xr, xk, xv, xw_, xg = _mix(p, x, state_x)
-
-    r = layers.matmul(xr, p["wr"]).reshape(b, t, h, HEAD_K)
-    k = layers.matmul(xk, p["wk"]).reshape(b, t, h, HEAD_K)
-    v = layers.matmul(xv, p["wv"]).reshape(b, t, h, HEAD_K)
-    g = F.silu(layers.matmul(xg, p["wg"]))
-
-    dec = (p["w0"].float()
-           + torch.tanh(layers.matmul(xw_, p["wd1"])).float()
-           @ p["wd2"].float())
-    w = torch.exp(-torch.exp(dec)).reshape(b, t, h, HEAD_K)  # in (0, 1)
-    # The decay is rounded to r's dtype before the WKV, as the reference
-    # rounds it.
-    out, new_wkv = _wkv(wkv_impl, r, k, v, w.to(r.dtype), p["u"], state_wkv,
-                        chunk)
-
-    out = _group_norm(p["ln_x"], out.reshape(b, t, d), h)
-    out = layers.matmul(out * g, p["wo"])
-    return out, _last(x), new_wkv
-
-
 def channelmix_apply(p, x, state_x):
     sx = _token_shift(x, state_x) - x
     xk = x + sx * p["maa_k"]
@@ -220,22 +193,27 @@ def _key_cols(w: torch.Tensor, h: int, lo: int, n: int) -> torch.Tensor:
         *w.shape[:-1], h * n)
 
 
-def timemix_mesh(p, x, state_x, state_wkv, lay, *, wkv_impl: str = "scan",
-                 chunk: int = 32):
-    """:func:`timemix_apply` of the residual stream ``x`` (B, T, D, whole
-    on every rank) on a mesh (see the module docstring).  ``state_x`` and
-    ``state_wkv`` are the rank's blocks, and so are the states
-    returned."""
+def timemix_apply(p, x, state_x, state_wkv, *, lay=None,
+                  wkv_impl: str = "scan", chunk: int = 32):
+    """x: (B, T, D); state_x: (B, D) the previous token; state_wkv: (B, H,
+    K, K).  Returns (out, x's last token, new WKV state).  With ``lay`` (a
+    mesh; see the module docstring) ``x`` is the residual stream, whole on
+    every rank, and the states taken and returned are the rank's blocks;
+    where K does not split, the rank takes the whole weights: the
+    single-device arithmetic."""
     b, t, d = x.shape
     h = d // HEAD_K
     xdim = (b, d)
-    split = lay.cache_dim("wkv", (b, h, HEAD_K, HEAD_K)) is not None
+    split = lay is not None and lay.cache_dim(
+        "wkv", (b, h, HEAD_K, HEAD_K)) is not None
     kl = HEAD_K // lay.tp if split else HEAD_K
     lo = lay.tp_rank * kl if split else 0
-    whole = lay.local_weight
+    whole = (lambda w: w) if lay is None else lay.local_weight
+    if lay is not None:
+        state_x = lay.cache_whole(state_x, "tm_x", xdim)
     xr, xk, xv, xw_, xg = _mix(
         {n: whole(p[n]) for n in ("maa_base", "maa", "tm_w1", "tm_w2")}, x,
-        lay.cache_whole(state_x, "tm_x", xdim))
+        state_x)
     # The rank's keys: a part of a sum over ``model`` where K splits.
     enter = lay.to_full if split else (lambda a: a)
     mine = (lambda w: lay.weight(w, None, whole=False)) if split else whole
@@ -245,8 +223,12 @@ def timemix_mesh(p, x, state_x, state_wkv, lay, *, wkv_impl: str = "scan",
     dec = (_key_cols(mine(p["w0"]), h, lo, kl).float()
            + torch.tanh(layers.matmul(enter(xw_), mine(p["wd1"]))).float()
            @ _key_cols(mine(p["wd2"]), h, lo, kl).float())
-    w = torch.exp(-torch.exp(dec)).reshape(b, t, h, kl)
-    out, new_wkv = _wkv(wkv_impl, r.reshape(b, t, h, kl).float(),
+    w = torch.exp(-torch.exp(dec)).reshape(b, t, h, kl)  # in (0, 1)
+    # The decay is rounded to r's dtype before the WKV, as the reference
+    # rounds it.  Where K splits, the output stays float32 (both WKV forms
+    # compute in float32) until the ranks' parts are summed.
+    rk = r.reshape(b, t, h, kl)
+    out, new_wkv = _wkv(wkv_impl, rk.float() if split else rk,
                         k.reshape(b, t, h, kl), v.reshape(b, t, h, HEAD_K),
                         w.to(r.dtype), mine(p["u"])[:, lo:lo + kl],
                         state_wkv, chunk)
@@ -254,14 +236,18 @@ def timemix_mesh(p, x, state_x, state_wkv, lay, *, wkv_impl: str = "scan",
         out = lay.from_partial(out)
     ln_x = {n: whole(p["ln_x"][n]) for n in ("scale", "bias")}
     out = _group_norm(ln_x, out.to(r.dtype).reshape(b, t, d), h)
-    if lay.model_dim(p["wg"]) == 1 and lay.model_dim(p["wo"]) == 0:
+    if lay is not None and lay.model_dim(p["wg"]) == 1 \
+            and lay.model_dim(p["wo"]) == 0:
         g = F.silu(layers.matmul(lay.to_full(xg), lay.weight(p["wg"], 1)))
         y = parallel.split(out, lay.tp_group, -1) * g
         out = lay.from_partial(layers.matmul(y, lay.weight(p["wo"], 0)))
     else:
         g = F.silu(layers.matmul(xg, whole(p["wg"])))
         out = layers.matmul(out * g, whole(p["wo"]))
-    return out, lay.cache_block(_last(x), "tm_x", xdim), new_wkv
+    last = _last(x)
+    if lay is not None:
+        last = lay.cache_block(last, "tm_x", xdim)
+    return out, last, new_wkv
 
 
 def channelmix_mesh(p, x, state_x, lay):

@@ -33,8 +33,8 @@ stream split along the sequence at the layer boundary where
 ``model`` divides the sequence).  Every block kind runs on a mesh: the
 recurrent ones (whose configs keep the stream replicated, ``seq_shard``
 False) split RWKV-6's WKV along each head's key dim and the RG-LRU's
-channels over ``model`` (``rwkv6.timemix_mesh``,
-``rglru.recurrent_block_mesh``), and each rank's recurrent state is its
+channels over ``model`` (``rwkv6.timemix_apply``,
+``rglru.recurrent_block_apply``), and each rank's recurrent state is its
 block of ``cache_specs``' split.
 """
 from __future__ import annotations
@@ -231,14 +231,9 @@ class Block(ParamTree):
                                           dtype=x.dtype, device=x.device,
                                           lay=lay)
         h = norm(cfg, self.norm1, x, lay)
-        if lay is None:
-            tm_out, tm_x, wkv = rwkv6.timemix_apply(
-                self.tm, h, state["tm_x"], state["wkv"],
-                wkv_impl=cfg.wkv_impl)
-        else:
-            tm_out, tm_x, wkv = rwkv6.timemix_mesh(
-                self.tm, h, state["tm_x"], state["wkv"], lay,
-                wkv_impl=cfg.wkv_impl)
+        tm_out, tm_x, wkv = rwkv6.timemix_apply(
+            self.tm, h, state["tm_x"], state["wkv"], lay=lay,
+            wkv_impl=cfg.wkv_impl)
         x = x + tm_out
         h = norm(cfg, self.norm2, x, lay)
         if lay is None:
@@ -255,12 +250,8 @@ class Block(ParamTree):
                 x.shape[0], cfg.rnn_width, cfg.conv_width, dtype=x.dtype,
                 device=x.device, lay=lay)
         h = norm(cfg, self.norm1, x, lay)
-        if lay is None:
-            r, state = rglru.recurrent_block_apply(self.rec, h, state,
-                                                   decode=decode)
-        else:
-            r, state = rglru.recurrent_block_mesh(self.rec, h, state, lay,
-                                                  decode=decode)
+        r, state = rglru.recurrent_block_apply(self.rec, h, state,
+                                               decode=decode, lay=lay)
         x = x + r
         h = norm(cfg, self.norm2, x, lay)
         return x + layers.mlp_apply(self.mlp, h, cfg.mlp_type, lay), None, \
@@ -349,14 +340,13 @@ def layout(cfg: ModelConfig, ctx, seq_len: int, *, decode: bool = False):
     """The ``parallel.Layout`` of a pass over ``seq_len`` tokens on
     ``ctx`` (None without one): the residual stream split along the
     sequence where ``cfg.seq_shard`` and ``model`` divides it, the
-    reference's ``bnd`` (never in decode, nor in a stack with recurrent
-    blocks, which read the whole sequence)."""
+    reference's ``bnd`` (never in decode; the recurrent configs, whose
+    blocks read the whole sequence, set ``seq_shard`` False)."""
     if ctx is None:
         return None
     tp = ctx.axis_size(ctx.tp_axis)
-    recurrent = {"rwkv", "rec"} & set(cfg.block_pattern)
-    return parallel.Layout(ctx, cfg.seq_shard and not recurrent
-                           and not decode and tp > 1 and seq_len % tp == 0)
+    return parallel.Layout(ctx, cfg.seq_shard and not decode and tp > 1
+                           and seq_len % tp == 0)
 
 
 def backbone(params: Transformer, x: torch.Tensor, *, caches=None,
