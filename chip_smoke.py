@@ -1162,25 +1162,26 @@ def same_diagram(a, b) -> bool:
 
 
 def stage_marks(fn):
-    """``fn(mark)`` with CUDA events recorded at each ``mark(stage)``:
-    returns ``(out, {stage: ms})``, each interval from the previous mark
-    (they include the stage's waits on host readbacks)."""
+    """``fn()`` under the program's recorder (``repro_torch.telemetry``):
+    returns ``(out, {stage: ms})``, each stage span's time on its stream
+    between its two CUDA events, summed over the stage's spans (they
+    include the stage's waits on host readbacks).  The recorder is off
+    again afterwards and keeps nothing of the call."""
     import torch
-    marks = []
-
-    def mark(stage: str) -> None:
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((stage, ev))
-
-    start = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn(mark)
-    torch.cuda.synchronize()
-    ms, prev = {}, start
-    for stage, ev in marks:
-        ms[stage] = prev.elapsed_time(ev)
-        prev = ev
+    from repro_torch import telemetry
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        spans = telemetry.snapshot()["spans"]
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+    ms: dict = {}
+    for s in spans:
+        if s.events is not None:
+            ms[s.name] = ms.get(s.name, 0.0) + s.device_ms()
     return out, ms
 
 
@@ -1258,8 +1259,8 @@ def phase_tiled(dev, frame, reset_counts, read_counts, err) -> dict:
               phase_c_impl=cfg.phase_c_impl)
     tvt = torch.tensor(tv, dtype=torch.float32, device=dev)
     td, tiled_stage_ms = stage_marks(
-        lambda mark: tiling.tiled_pixhomology_stacks(
-            staged.pvals, staged.pgidx, tvt, mark=mark, **kw))
+        lambda: tiling.tiled_pixhomology_stacks(
+            staged.pvals, staged.pgidx, tvt, **kw))
     if not same_diagram(td.diagram, res.diagram):
         raise AssertionError("staged stage-timed run differs")
     n_cand = int(td.n_tile_cands.sum())
@@ -1603,8 +1604,7 @@ def phase_pipeline(reset_counts, read_counts, err) -> dict:
         raise AssertionError(f"rounds {res_s.rounds}/{res_o.rounds}: one "
                              f"executor gives one round per image")
     want_counts = dict(h2d_transfers=whole_rounds, dispatch_syncs=0,
-                       harvest_syncs=res_o.rounds, d2h_streams=res_o.rounds,
-                       donation_replays=0)
+                       harvest_syncs=res_o.rounds, d2h_streams=res_o.rounds)
     if any(count_o[k] != v for k, v in want_counts.items()):
         raise AssertionError(f"overlap counters {count_o} != {want_counts}")
     if count_s["dispatch_syncs"] != res_s.rounds \
@@ -4480,8 +4480,8 @@ def main() -> int:
     torch.cuda.synchronize()
     cast_ms = (time.perf_counter() - t0) * 1e3
 
-    # Per-stage device times of the same computation (CUDA events between
-    # stage marks), with the kernels and with the plain versions.
+    # Per-stage device times of the same computation (the recorder's
+    # stage events), with the kernels and with the plain versions.
     tv = torch.tensor(res.threshold, dtype=torch.float32, device=dev)
     stage_kw = dict(max_features=mf, max_candidates=mc, merge_impl="boruvka",
                     phase_c_impl="fused", strip_rows=cfg.strip_rows)
@@ -4489,8 +4489,8 @@ def main() -> int:
     def staged(use_pallas, kw=stage_kw, want=None):
         """Per-stage device times of one ``pixhomology`` call; the diagram
         must equal ``want``."""
-        d, ms = stage_marks(lambda mark: pixhomology(
-            x_run, tv, mark=mark, use_pallas=use_pallas, **kw))
+        d, ms = stage_marks(lambda: pixhomology(
+            x_run, tv, use_pallas=use_pallas, **kw))
         if not same_diagram(d, res.diagram if want is None else want):
             raise AssertionError(f"staged run (use_pallas={use_pallas}) "
                                  f"differs from the engine run")

@@ -28,6 +28,7 @@ import hashlib
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import packed_keys
 from repro_torch.core.grid import neg_inf
 from repro_torch.core.tiling import (StagedTiles, TileBoundaryState,
@@ -67,6 +68,7 @@ def hasher(algo: str):
 
 def _tile_bytes(tile: torch.Tensor) -> bytes:
     """The bytes of one halo tile on the host (bfloat16 as its bits)."""
+    telemetry.readback(tile.device)
     tile = tile.detach().cpu().contiguous()
     if tile.dtype == torch.bfloat16:
         tile = tile.view(torch.int16)
@@ -95,6 +97,7 @@ def _host_frame(source) -> torch.Tensor:
         else torch.from_numpy(np.ascontiguousarray(source))
     if arr.dim() != 2:
         raise ValueError(f"expected a 2D frame, got shape {tuple(arr.shape)}")
+    telemetry.readback(arr.device)
     return arr.detach().cpu()
 
 
@@ -184,12 +187,14 @@ def dirty_stacks(source, grid: tuple[int, int], dirty, bucket: int,
     if isinstance(source, StagedTiles):
         shape = source.shape
         dev = source.pvals.device
+        telemetry.readback(dev)     # a pageable upload
         pv = source.pvals[torch.as_tensor(dirty, device=dev)]
     else:
         arr = _host_frame(source)
         shape = tuple(arr.shape)
         dev = torch.device("cuda" if device is None else device)
         padded = _padded_host(arr, filtration)
+        telemetry.readback(dev)     # a pageable upload
         pv = torch.stack([_window(padded, grid, int(t))
                           for t in dirty]).to(dev)
     pg = halo_gidx_stack(shape, grid, dirty, dev)
@@ -242,6 +247,7 @@ def scatter_merge(state: TileBoundaryState, fresh: TileBoundaryState,
                                                 state.root_val.dtype)
     dev = state.root_val.device
     truncated, tvi = internal_threshold(tv, filtration, dev)
+    telemetry.readback(dev)         # a pageable upload
     idx = torch.as_tensor(np.asarray(slots, np.int64), device=dev)
 
     def put(c, f):

@@ -14,6 +14,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch import telemetry
+
 # 8-neighborhood offsets (self excluded), fixed order: every consumer uses
 # the same order so merge processing is bit-identical across layers.
 NEIGHBOR_OFFSETS = [(-1, -1), (-1, 0), (-1, 1),
@@ -41,12 +43,13 @@ def fixed_point_iterate(step: Callable[[torch.Tensor], torch.Tensor],
 
     Returns ``(x, n_steps)`` where ``n_steps`` counts the ``step``
     evaluations, including the final one that verifies the fixed point.
-    Each iteration reads one flag back to the host (``.item()``).
+    Each iteration reads one flag back to the host (one ``readbacks``).
     """
     x, k = x0, 0
     while True:
         x2 = step(x)
         k += 1
+        telemetry.readback()
         if not bool((x2 != x).any()):
             return x2, k
         x = x2

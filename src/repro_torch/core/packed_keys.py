@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import telemetry
+
 MERGE_KEYS = ("packed", "rank")
 FILTRATIONS = ("superlevel", "sublevel")
 
@@ -58,20 +60,24 @@ def check_finite(values, where: str = "image", *, allow_inf: bool = False):
 
     NaN admits no filtration order; ``±inf`` collides with the pad
     sentinels and is rejected unless ``allow_inf``.  Accepts numpy arrays
-    and tensors; a tensor on the card costs one readback.  Returns
-    ``values`` unchanged.
+    and tensors; a tensor on the card costs a readback for each test.
+    Returns ``values`` unchanged.
     """
-    if isinstance(values, torch.Tensor):
-        if not values.dtype.is_floating_point:
-            return values
-        has_nan = bool(torch.isnan(values).any())
-        has_inf = not allow_inf and bool(torch.isinf(values).any())
-    else:
-        arr = np.asarray(values)
-        if arr.dtype.kind != "f":
-            return values
-        has_nan = bool(np.isnan(arr).any())
-        has_inf = not allow_inf and not bool(np.isfinite(arr).all())
+    with telemetry.span("check_finite"):
+        if isinstance(values, torch.Tensor):
+            if not values.dtype.is_floating_point:
+                return values
+            telemetry.readback(values.device)
+            has_nan = bool(torch.isnan(values).any())
+            if not allow_inf:
+                telemetry.readback(values.device)
+            has_inf = not allow_inf and bool(torch.isinf(values).any())
+        else:
+            arr = np.asarray(values)
+            if arr.dtype.kind != "f":
+                return values
+            has_nan = bool(np.isnan(arr).any())
+            has_inf = not allow_inf and not bool(np.isfinite(arr).all())
     if has_nan:
         raise ValueError(
             f"non-finite pixel(s) in {where}: NaN values cannot be "

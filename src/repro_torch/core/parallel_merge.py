@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.grid import (fixed_point_iterate, gather_flat,
                                    higher_neighbor_basins, neg_inf)
 from repro_torch.core.packed_keys import key_pad, masked_top_k, packed_index
@@ -134,6 +135,7 @@ def boruvka_forest(v_rank, e_rank, e_val, e_pos, e_a, e_b, *,
         parent = torch.where(die, other, parent)
         dval = torch.where(die, e_val[wi], dval)
         dpos = torch.where(die, e_pos[wi], dpos)
+        telemetry.readback()
         n_die, alive_any = torch.stack(
             [die.sum(), alive.any().long()]).tolist()   # one readback
         merges += n_die

@@ -32,11 +32,12 @@ diagram carries an overflow flag the engine regrows on.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import packed_keys
 from repro_torch.core.grid import (NEIGHBOR_OFFSETS, fixed_point_iterate,
                                    gather_flat, higher_neighbor_basins,
@@ -70,6 +71,7 @@ def diagram_to_numpy(d: Diagram) -> Diagram:
     """The diagram's fields as host numpy arrays (bfloat16 widens exactly
     to float32, which numpy can hold)."""
     def host(t):
+        telemetry.readback(t.device)
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.to(torch.float32)
@@ -179,6 +181,7 @@ def resolve_labels_frontier(pointers: torch.Tensor, shape: tuple[int, int],
     """
     h, w = shape
     dev = pointers.device
+    telemetry.readback(dev)     # a pageable upload
     b_rows = torch.as_tensor(phase_a_ops.boundary_rows(h, strip_rows),
                              device=dev)
     row_slot = torch.full((h,), -1, dtype=torch.int32, device=dev)
@@ -365,6 +368,7 @@ def merge_components(image_flat: torch.Tensor, key_flat: torch.Tensor,
     ok_all, basin_all = higher_neighbor_basins(
         top_pix, top_keys, key_flat, labels_flat, (h, w), valid)   # (k, 8)
     xval_all = image_flat[top_pix.long()]
+    telemetry.readback()
     steps = min(int(n_cand), k)
 
     parent = torch.arange(n, dtype=torch.int32, device=dev)
@@ -450,6 +454,7 @@ def phase_c(image_flat: torch.Tensor, key_flat: torch.Tensor,
             vals, key_flat, labels_flat, cand_flat, (h, w), max_candidates,
             truncate_value=truncate_value)
     elif merge_impl == "boruvka":
+        telemetry.readback()
         dval, dpos, overflow_k, _rounds = parallel_merge.boruvka_merge(
             vals, key_flat, labels_flat, cand_b, (h, w), max_candidates,
             n_live=int(root_mask.sum()), tournament_width=tournament_width)
@@ -492,47 +497,44 @@ def _pixhomology(image: torch.Tensor, truncate_value=None, *,
                  strip_rows: int = 8, merge_keys: str = "rank",
                  phase_c_impl: str = "fused", tournament_width: int = 2,
                  filtration: str = "superlevel",
-                 phase_a_out: PhaseA | None = None,
-                 mark: Callable[[str], None] | None = None) -> Diagram:
+                 phase_a_out: PhaseA | None = None) -> Diagram:
     """Algorithm-1 core on one image with ``merge_keys`` already resolved.
 
     ``filtration="sublevel"`` negates the image (and threshold) on entry
     and the diagram's values on exit.  ``phase_a_out`` supplies phase A
     computed elsewhere (the batched path runs it for the whole batch at
-    once); ``mark(stage)`` is called after each stage (timing hook).
+    once).  Each stage is a :mod:`repro_torch.telemetry` span on the
+    image's device.
     """
     if image.dim() != 2:
         raise ValueError(f"expected 2D image, got shape {tuple(image.shape)}")
+    dev = image.device
     image = packed_keys.filtration_view(image, filtration)
     if truncate_value is not None and filtration == "sublevel":
         truncate_value = -truncate_value
     h, w = image.shape
     vals = image.reshape(-1)
-    key = total_order_keys(vals, merge_keys)
-    if mark:
-        mark("keys")
-
-    pa = phase_a_out if phase_a_out is not None else phase_a(
-        image, phase_a_impl=phase_a_impl, strip_rows=strip_rows,
-        use_pallas=use_pallas)
-    if mark:
-        mark("phase_a")
-    labels = phase_b(pa, (h, w), phase_a_impl=phase_a_impl,
-                     strip_rows=strip_rows)
-    if mark:
-        mark("phase_b")
-    cand = candidates(key, labels, pa, (h, w), candidate_mode,
-                      use_pallas=use_pallas)
-    if mark:
-        mark("candidates")
-    d = phase_c(vals, key, labels, cand, (h, w), truncate_value,
-                max_features=max_features, max_candidates=max_candidates,
-                merge_impl=merge_impl, phase_c_impl=phase_c_impl,
-                tournament_width=tournament_width, use_pallas=use_pallas)
-    if filtration == "sublevel":
-        d = d._replace(birth=-d.birth, death=-d.death)
-    if mark:
-        mark("phase_c")
+    with telemetry.span("keys", dev):
+        key = total_order_keys(vals, merge_keys)
+    pa = phase_a_out
+    if pa is None:
+        with telemetry.span("phase_a", dev):
+            pa = phase_a(image, phase_a_impl=phase_a_impl,
+                         strip_rows=strip_rows, use_pallas=use_pallas)
+    with telemetry.span("phase_b", dev):
+        labels = phase_b(pa, (h, w), phase_a_impl=phase_a_impl,
+                         strip_rows=strip_rows)
+    with telemetry.span("candidates", dev):
+        cand = candidates(key, labels, pa, (h, w), candidate_mode,
+                          use_pallas=use_pallas)
+    with telemetry.span("phase_c", dev):
+        d = phase_c(vals, key, labels, cand, (h, w), truncate_value,
+                    max_features=max_features,
+                    max_candidates=max_candidates, merge_impl=merge_impl,
+                    phase_c_impl=phase_c_impl,
+                    tournament_width=tournament_width, use_pallas=use_pallas)
+        if filtration == "sublevel":
+            d = d._replace(birth=-d.birth, death=-d.death)
     return d
 
 
@@ -576,9 +578,10 @@ def batched_pixhomology(images: torch.Tensor, truncate_values=None, *,
                          f"{tuple(images.shape)}")
     packed_keys.check_finite(images, allow_inf=True)
     merge_keys = packed_keys.resolve_merge_keys(merge_keys, images.dtype)
-    pa = phase_a(packed_keys.filtration_view(images, filtration),
-                 phase_a_impl=phase_a_impl, strip_rows=strip_rows,
-                 use_pallas=use_pallas)
+    with telemetry.span("phase_a", images.device):
+        pa = phase_a(packed_keys.filtration_view(images, filtration),
+                     phase_a_impl=phase_a_impl, strip_rows=strip_rows,
+                     use_pallas=use_pallas)
     diags = [_pixhomology(
         images[i], None if truncate_values is None else truncate_values[i],
         merge_keys=merge_keys, phase_a_impl=phase_a_impl,
@@ -614,4 +617,5 @@ def num_candidates(image: torch.Tensor, candidate_mode: str = "exact",
                       use_pallas=use_pallas).reshape(h, w)
     if truncate_value is not None:
         cand = cand & (image >= truncate_value)
+    telemetry.readback()
     return int(cand.sum())

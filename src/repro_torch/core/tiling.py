@@ -43,13 +43,14 @@ from __future__ import annotations
 import dataclasses
 import functools
 import weakref
-from typing import Any, Callable, NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from repro_torch import telemetry
 from repro_torch.core import packed_keys
 from repro_torch.core.grid import (fixed_point_iterate, gather_flat,
                                    higher_neighbor_basins, neg_inf)
@@ -195,6 +196,7 @@ def halo_gidx_stack(shape: tuple[int, int], grid: tuple[int, int],
     pixels are -1, matching ``split_tiles(gidx2d, grid, -1)``."""
     h, w = shape
     tr, tc, _ = _tile_dims(shape, grid)
+    telemetry.readback(device)      # a pageable upload
     t = torch.as_tensor(np.asarray(tiles, np.int64), device=device)
     rows = ((t // grid[1]) * tr - 1)[:, None] + torch.arange(
         tr + 2, device=device)[None, :]
@@ -287,7 +289,11 @@ def tile_phase_a(pvals: torch.Tensor, pgidx: torch.Tensor):
 
     own_vals = pvals[:, 1:-1, 1:-1]
     own_gidx = pgidx[:, 1:-1, 1:-1]
-    rr, cc = (torch.as_tensor(a, device=dev) for a in _ring_coords(tr, tc))
+    ring = []
+    for a in _ring_coords(tr, tc):
+        telemetry.readback(dev)     # a pageable upload
+        ring.append(torch.as_tensor(a, device=dev))
+    rr, cc = ring
     ring_gidx = own_gidx[:, rr, cc]
     ring_ptr = ptr_owned[:, rr, cc]
 
@@ -448,16 +454,18 @@ def tile_phase_ab(pvals, pgidx, tv, *,
     Row ``t`` of the result is a pure function of tile ``t``'s bytes (plus
     the static capacities and threshold): the unit the delta layer caches
     and replays.  The cold path runs it over all ``T`` tiles, a delta run
-    over the dirty subset.
+    over the dirty subset.  A ``tiles.phase_ab`` span on the stack's
+    device.
     """
-    (ptr_owned, ring_gidx, ring_ptr, min_val, min_gidx) = tile_phase_a(
-        pvals, pgidx)
-    (e_val, e_pos, e_a, e_b, e_ok, root_val, root_gidx, root_valid,
-     rmax_val, rmax_gidx, n_roots, n_cand) = tile_phase_b(
-        pvals, pgidx, ptr_owned, tv,
-        tile_max_candidates=tile_max_candidates,
-        tile_max_features=tile_max_features,
-        truncated=truncated, merge_keys=merge_keys)
+    with telemetry.span("tiles.phase_ab", pvals.device):
+        (ptr_owned, ring_gidx, ring_ptr, min_val,
+         min_gidx) = tile_phase_a(pvals, pgidx)
+        (e_val, e_pos, e_a, e_b, e_ok, root_val, root_gidx, root_valid,
+         rmax_val, rmax_gidx, n_roots, n_cand) = tile_phase_b(
+            pvals, pgidx, ptr_owned, tv,
+            tile_max_candidates=tile_max_candidates,
+            tile_max_features=tile_max_features,
+            truncated=truncated, merge_keys=merge_keys)
     return TileBoundaryState(ring_gidx, ring_ptr, min_val, min_gidx,
                              e_val, e_pos, e_a, e_b, e_ok,
                              root_val, root_gidx, root_valid,
@@ -546,6 +554,7 @@ def seam_merge(root_val, root_gidx, root_valid,
         from repro_torch.kernels.ph_phase_c import ops as phase_c_ops
         reduce_fn = functools.partial(phase_c_ops.best_edge_reduce,
                                       use_pallas=use_pallas)
+    telemetry.readback()
     n_live = int(ok_r.sum())
     dval, dpos, _rounds = boruvka_forest(
         v_rank, e_rank, ev.to(dtype), ep,
@@ -597,9 +606,7 @@ def merge_tile_state(state: TileBoundaryState, tv, *,
                      tile_max_candidates: int, truncated: bool,
                      merge_keys: str = "rank", phase_c_impl: str = "fused",
                      phase_c_block: int = 1024,
-                     use_pallas: bool | None = None,
-                     mark: Callable[[str], None] | None = None
-                     ) -> TiledDiagram:
+                     use_pallas: bool | None = None) -> TiledDiagram:
     """O(boundary) global replay: ring condensation + pre-label resolution
     + elder-rule seam merge over a stacked :class:`TileBoundaryState`.
 
@@ -607,15 +614,16 @@ def merge_tile_state(state: TileBoundaryState, tv, *,
     doubling on the full ring table re-resolves every cross-tile chain
     (clean rows of a delta run store pre-labels, not stale final labels),
     then ``e_a``/``e_b`` map through the table; a pre-label absent from it
-    is an in-tile root, whose final label is itself.  ``mark(stage)`` is
-    called after the ring table and after the seam merge (timing hook).
+    is an in-tile root, whose final label is itself.  The ring table and
+    the seam merge are ``tiles.ring_table`` and ``tiles.seam_merge`` spans
+    on the state's device.
     """
     h, w = shape
     tr, tc, _ = _tile_dims(shape, grid)
+    dev = state.root_val.device
 
-    sg, sl = resolve_ring_table(state.ring_gidx, state.ring_ptr)
-    if mark:
-        mark("ring_table")
+    with telemetry.span("tiles.ring_table", dev):
+        sg, sl = resolve_ring_table(state.ring_gidx, state.ring_ptr)
 
     gmin_val = state.min_val.min()
     gmin_gidx = torch.where(state.min_val == gmin_val, state.min_gidx,
@@ -625,17 +633,16 @@ def merge_tile_state(state: TileBoundaryState, tv, *,
     e_b = _table_follow(sg, sl, state.e_b)
 
     f_global = min(max_features, h * w)
-    (birth, death, p_birth, p_death, count, n_unmerged,
-     merge_overflow) = seam_merge(
-        state.root_val, state.root_gidx, state.root_valid,
-        state.e_val, state.e_pos, e_a, e_b, state.e_ok,
-        state.rmax_val, state.rmax_gidx, gmin_val, gmin_gidx, tv,
-        truncated=truncated, max_features=f_global,
-        dtype=state.root_val.dtype, merge_keys=merge_keys,
-        phase_c_impl=phase_c_impl, phase_c_block=phase_c_block,
-        use_pallas=use_pallas)
-    if mark:
-        mark("seam_merge")
+    with telemetry.span("tiles.seam_merge", dev):
+        (birth, death, p_birth, p_death, count, n_unmerged,
+         merge_overflow) = seam_merge(
+            state.root_val, state.root_gidx, state.root_valid,
+            state.e_val, state.e_pos, e_a, e_b, state.e_ok,
+            state.rmax_val, state.rmax_gidx, gmin_val, gmin_gidx, tv,
+            truncated=truncated, max_features=f_global,
+            dtype=state.root_val.dtype, merge_keys=merge_keys,
+            phase_c_impl=phase_c_impl, phase_c_block=phase_c_block,
+            use_pallas=use_pallas)
 
     tile_overflow = (
         (state.n_cand > min(tile_max_candidates, tr * tc)).any()
@@ -690,9 +697,10 @@ def tiled_pixhomology(image: torch.Tensor, truncate_value=None, *,
     fill = neg_inf(image.dtype)
     if filtration == "sublevel":
         fill = -fill
-    pvals = split_tiles(image, grid, fill)
-    pgidx = halo_gidx_stack((h, w), grid, np.arange(grid[0] * grid[1]),
-                            image.device)
+    with telemetry.span("tiles.split", image.device):
+        pvals = split_tiles(image, grid, fill)
+        pgidx = halo_gidx_stack((h, w), grid,
+                                np.arange(grid[0] * grid[1]), image.device)
     return tiled_pixhomology_stacks(
         pvals, pgidx, truncate_value, shape=(h, w), grid=grid,
         merge_keys=merge_keys, filtration=filtration, **kwargs)
@@ -708,8 +716,7 @@ def tiled_pixhomology_stacks(pvals: torch.Tensor, pgidx: torch.Tensor,
                              phase_c_impl: str = "fused",
                              phase_c_block: int = 1024,
                              filtration: str = "superlevel",
-                             use_pallas: bool | None = None,
-                             mark: Callable[[str], None] | None = None
+                             use_pallas: bool | None = None
                              ) -> TiledDiagram:
     """Halo-tiled PH on pre-staged tile stacks (the streaming entry point).
 
@@ -720,8 +727,7 @@ def tiled_pixhomology_stacks(pvals: torch.Tensor, pgidx: torch.Tensor,
     every dtype of 32 bits or fewer).  Sublevel runs on the exact
     negation: the stacks (user space, ``+inf`` halo fill) and threshold
     negate here, every internal stage stays in superlevel order, and only
-    the output diagram negates back.  ``mark(stage)`` is called after the
-    per-tile phases, the ring table and the seam merge (timing hook).
+    the output diagram negates back.
     """
     h, w = shape
     grid = tuple(grid)
@@ -739,14 +745,12 @@ def tiled_pixhomology_stacks(pvals: torch.Tensor, pgidx: torch.Tensor,
                           tile_max_candidates=tile_max_candidates,
                           tile_max_features=tile_max_features,
                           truncated=truncated, merge_keys=merge_keys)
-    if mark:
-        mark("phase_ab")
     td = merge_tile_state(
         state, tv, shape=(h, w), grid=grid, max_features=max_features,
         tile_max_features=tile_max_features,
         tile_max_candidates=tile_max_candidates, truncated=truncated,
         merge_keys=merge_keys, phase_c_impl=phase_c_impl,
-        phase_c_block=phase_c_block, use_pallas=use_pallas, mark=mark)
+        phase_c_block=phase_c_block, use_pallas=use_pallas)
     return negate_diagram(td, filtration)
 
 

@@ -23,6 +23,7 @@ import functools
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.grid import higher_neighbor_basins
 from repro_torch.core.packed_keys import key_pad
 from repro_torch.core.parallel_merge import (boruvka_forest,
@@ -119,6 +120,7 @@ def fused_merge(image_flat, key_flat, labels_flat, cand_flat, root_mask,
     sb, fb = _slot_lookup(sorted_pix, order, e_b)
     e_key_c = torch.where(fa & fb, e_key, key_pad(e_key.dtype))
 
+    telemetry.readback()
     c = int(root_mask.sum())
     reduce_fn = functools.partial(best_edge_reduce, use_pallas=use_pallas)
     dval_c, dpos_c, rounds = boruvka_forest(

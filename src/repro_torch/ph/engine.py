@@ -40,7 +40,13 @@ Counterpart of ``repro.ph.engine`` for the whole-image path:
 * **autotuned knobs** — with ``config.autotune`` each image shape
   family's cached tuned knobs (:mod:`repro_torch.roofline.autotune`)
   fold into an effective config that keys its plans, and its tuned tile
-  grid into the tiled paths; the lookup never measures.
+  grid into the tiled paths; the lookup never measures;
+* **telemetry** — each public entry opens a :mod:`repro_torch.telemetry`
+  call, and its parts are spans: ``prep`` (``check_finite``, ``cast``,
+  ``stage``, ``upload``), ``threshold``, ``grid`` (``choose_grid``),
+  ``dedupe``, ``dispatch`` (one per plan call), ``regrow`` (around each
+  replay), ``overflow_check``, ``d2h`` and ``repair``; the recorder is
+  off unless enabled.
 
 The engine runs on the CUDA device unless the caller passes another
 ``device`` (the tests pass ``"cpu"``); without CUDA, ``PHEngine()`` raises
@@ -59,6 +65,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import Diagram, batched_pixhomology, \
     num_candidates as core_num_candidates, pixhomology, stack_diagrams
 from repro_torch.core.packed_keys import check_finite, resolve_merge_keys
@@ -136,7 +143,8 @@ class Plan:
     def __call__(self, *args):
         with self._lock:
             self.calls += 1
-        return self.fn(*args)
+        with telemetry.span("dispatch"):
+            return self.fn(*args)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -474,7 +482,8 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
                 return tg
             except ValueError:
                 pass
-        return tiling.choose_grid(tuple(shape2d), spec.max_tile_pixels)
+        with telemetry.span("grid"):
+            return tiling.choose_grid(tuple(shape2d), spec.max_tile_pixels)
 
     # -- capacity regrow ---------------------------------------------------
 
@@ -547,7 +556,8 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
                                             "to": (nmf, nmc)})
                 mf, mc = nmf, nmc
                 attempts += 1
-                out = dispatch(mf, mc)
+                with telemetry.span("regrow"):
+                    out = dispatch(mf, mc)
                 over = overflowed(out)
             if attempts and memo_key is not None:
                 with self._lock:
@@ -555,10 +565,19 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
                     if got is None or got < (mf, mc):
                         self._grown[memo_key] = (mf, mc)
             if stream:
-                out = start_d2h(out, self.overlap_counters).result()
+                with telemetry.span("d2h"):
+                    out = start_d2h(out, self.overlap_counters).result()
             return out, RegrowStats(attempts, mf, mc, bool(over))
 
         return out0, finish
+
+    @staticmethod
+    def overflowed(flag: torch.Tensor) -> bool:
+        """An overflow flag read back to the host (an ``overflow_check``
+        span, one readback)."""
+        with telemetry.span("overflow_check"):
+            telemetry.readback()
+            return bool(flag)
 
     def run_with_regrow(self, dispatch: Callable[[int, int], Any],
                         overflowed: Callable[[Any], bool], n: int, kind: str,
@@ -584,11 +603,18 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         if dt not in SUPPORTED_DTYPES:
             raise TypeError(f"image dtype {x.dtype} is not supported; "
                             f"expected one of {SUPPORTED_DTYPES}")
-        return x.to(dtype=dt)
+        with telemetry.span("cast"):
+            return x.to(dtype=dt)
 
     def cast_input(self, image) -> torch.Tensor:
-        """:meth:`cast_input_host`, then onto the engine's device."""
-        return self.cast_input_host(image).to(self.device).contiguous()
+        """:meth:`cast_input_host`, then onto the engine's device (a
+        ``prep`` span; the copy is its ``upload``)."""
+        with telemetry.span("prep"):
+            x = self.cast_input_host(image)
+            with telemetry.span("upload"):
+                if x.device.type != self.device.type:
+                    telemetry.readback(self.device)    # a pageable upload
+                return x.to(self.device).contiguous()
 
     def auto_threshold(self, image) -> float | None:
         """The Variant-2 threshold ``config.filter_level`` implies for
@@ -598,13 +624,17 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         if self.config.filter_level is FilterLevel.VANILLA:
             return None
         from repro_torch.data import astro
-        x = as_host_tensor(image).detach().cpu()
-        host = x if x.dtype == torch.bfloat16 else x.numpy()
-        if self.config.filtration == "sublevel":
-            t, _ = astro.filter_threshold(-host, self.config.filter_level)
-            return None if t is None else -t
-        t, _ = astro.filter_threshold(host, self.config.filter_level)
-        return t
+        with telemetry.span("threshold"):
+            x = as_host_tensor(image).detach()
+            telemetry.readback(x.device)
+            x = x.cpu()
+            host = x if x.dtype == torch.bfloat16 else x.numpy()
+            if self.config.filtration == "sublevel":
+                t, _ = astro.filter_threshold(-host,
+                                              self.config.filter_level)
+                return None if t is None else -t
+            t, _ = astro.filter_threshold(host, self.config.filter_level)
+            return t
 
     # -- warm plan pool ----------------------------------------------------
 
@@ -667,6 +697,7 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
                 # the filtration's feature points (local minima).
                 dummy = -dummy
             host = self.cast_input_host(dummy)
+            telemetry.readback(self.device)     # a pageable upload
             self._run_single(host.to(self.device),
                              inert if truncated else None)
             for b in batch_sizes:
@@ -692,6 +723,7 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
 
     # -- public entry points ----------------------------------------------
 
+    @telemetry.entry
     def run(self, image, truncate_value: float | None = None) -> PHResult:
         """0-dim PH of one 2D image with auto-regrow.
 
@@ -710,9 +742,7 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         threshold (``None``: untruncated)."""
         truncated = truncate_value is not None
         shape, dtype = tuple(x.shape), x.dtype
-        if truncated:
-            tv = torch.tensor(truncate_value, dtype=threshold_dtype(dtype),
-                              device=self.device)
+        tv = self._threshold_tensor(truncate_value, dtype)
 
         def dispatch(mf, mc):
             plan = self._local_plan("single", shape, dtype, mf, mc,
@@ -720,7 +750,8 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
             return plan(x, tv) if truncated else plan(x)
 
         diag, stats = self.run_with_regrow(
-            dispatch, lambda d: bool(d.overflow), x.numel(), "single",
+            dispatch, lambda d: self.overflowed(d.overflow), x.numel(),
+            "single",
             memo_key=("single", shape, str(dtype)))
         return PHResult(diag, self.config.replace(
             max_features=stats.final_max_features,
@@ -757,7 +788,9 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         reps: list[int] = []
         inverse = np.empty(len(seq), np.int64)
         for i, (im, t) in enumerate(zip(seq, tvs)):
-            x = as_host_tensor(im).detach().cpu().contiguous()
+            x = as_host_tensor(im).detach()
+            telemetry.readback(x.device)
+            x = x.cpu().contiguous()
             raw = x.view(torch.int16) if x.dtype == torch.bfloat16 else x
             digest = hashlib.blake2b(raw.numpy().tobytes(),
                                      digest_size=16).digest()
@@ -774,6 +807,7 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
             else [tvs[i] for i in reps]
         return reps, inverse, [seq[i] for i in reps], rep_tvs
 
+    @telemetry.entry
     def run_batch(self, images, truncate_values=None, *,
                   bucket: tuple[int, int] | None = None,
                   dedupe: bool = True) -> PHResult:
@@ -805,6 +839,7 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         return self.run_batch_async(images, truncate_values, bucket=bucket,
                                     dedupe=dedupe).resolve()
 
+    @telemetry.entry
     def run_batch_async(self, images, truncate_values=None, *,
                         bucket: tuple[int, int] | None = None,
                         dedupe: bool = True) -> PendingResult:
@@ -822,7 +857,8 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         ``resolve()`` finishes the overflow check and the repair.
         """
         if dedupe:
-            plan = self._dedupe_batch(images, truncate_values)
+            with telemetry.span("dedupe"):
+                plan = self._dedupe_batch(images, truncate_values)
             if plan is not None:
                 _, inverse, rep_images, rep_tvs = plan
                 pending = self.run_batch_async(rep_images, rep_tvs,
@@ -871,7 +907,7 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
             return plan(xs[0], tvs[0]) if truncated else plan(xs[0])
 
         _, finish = self.begin_regrow(
-            dispatch, lambda d: bool(d.overflow.any()),
+            dispatch, lambda d: self.overflowed(d.overflow.any()),
             shape[1] * shape[2], "batched",
             memo_key=("batched", tuple(shape), str(dtype)), stream=stream)
 
@@ -888,8 +924,11 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         """One ``(B, H, W)`` dispatch at the batch's own shape."""
         on_device = isinstance(images, torch.Tensor) and \
             canonical_device(images.device) == canonical_device(self.device)
-        host = None if on_device else self.cast_input_host(images)
-        x = self.cast_input(images) if on_device else host
+        if on_device:
+            x = self.cast_input(images)
+        else:
+            with telemetry.span("prep"):
+                x = self.cast_input_host(images)
         if x.dim() != 3:
             raise ValueError(f"expected (B, H, W) batch, got shape "
                              f"{tuple(x.shape)}")
@@ -902,19 +941,25 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         truncated = truncate_values is not None
         shape, dtype = tuple(x.shape), x.dtype
         if on_device:
-            tv = torch.as_tensor(np.asarray(truncate_values),
-                                 device=self.device).to(
-                threshold_dtype(dtype)) if truncated else None
+            tv = None
+            if truncated:
+                with telemetry.span("threshold"):
+                    telemetry.readback(self.device)   # a pageable upload
+                    tv = torch.as_tensor(np.asarray(truncate_values),
+                                         device=self.device).to(
+                        threshold_dtype(dtype))
             finish = self._begin_batch(shape, dtype, truncated, None, x, tv)
         else:       # an engine-owned copy in a staging slot, uploaded
-            slot = self.staging.acquire((self.device,), shape, dtype,
-                                        threshold_dtype(dtype))
-            slot.host_batch.copy_(host)
-            if truncated:
-                slot.host_tvals.copy_(torch.as_tensor(np.asarray(
-                    truncate_values)).to(slot.host_tvals.dtype))
-            finish = self._begin_batch(shape, dtype, truncated,
-                                       self.staging.upload(slot))
+            with telemetry.span("prep"):
+                slot = self.staging.acquire((self.device,), shape, dtype,
+                                            threshold_dtype(dtype))
+                with telemetry.span("stage"):
+                    slot.host_batch.copy_(x)
+                    if truncated:
+                        slot.host_tvals.copy_(torch.as_tensor(np.asarray(
+                            truncate_values)).to(slot.host_tvals.dtype))
+                slot = self.staging.upload(slot)
+            finish = self._begin_batch(shape, dtype, truncated, slot)
 
         def materialize():
             diag, stats = finish()
@@ -935,53 +980,61 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
                                                   pad_threshold,
                                                   unpad_diagram)
         from repro_torch.pipeline.scheduler import bucket_shape
-        imgs = [self.cast_input_host(im).cpu() for im in seq]
-        if bucket is None:
-            per = [bucket_shape(tuple(im.shape), self.config.bucket_rounding)
-                   for im in imgs]
-            bucket = (max(s[0] for s in per), max(s[1] for s in per))
-        bucket = (int(bucket[0]), int(bucket[1]))
-        if truncate_values is None:
-            tvs: list = [None] * len(imgs)
-        elif np.isscalar(truncate_values):
-            tvs = [float(truncate_values)] * len(imgs)
-        else:
-            tvs = [None if t is None or not np.isfinite(t) else float(t)
-                   for t in np.asarray(truncate_values, object).tolist()]
-        if len(tvs) != len(imgs):
-            raise ValueError(f"{len(tvs)} thresholds for {len(imgs)} images")
+        with telemetry.span("prep"):
+            imgs = []
+            for im in seq:
+                x = self.cast_input_host(im)
+                telemetry.readback(x.device)
+                imgs.append(x.cpu())
+            if bucket is None:
+                per = [bucket_shape(tuple(im.shape),
+                                    self.config.bucket_rounding)
+                       for im in imgs]
+                bucket = (max(s[0] for s in per), max(s[1] for s in per))
+            bucket = (int(bucket[0]), int(bucket[1]))
+            if truncate_values is None:
+                tvs: list = [None] * len(imgs)
+            elif np.isscalar(truncate_values):
+                tvs = [float(truncate_values)] * len(imgs)
+            else:
+                tvs = [None if t is None or not np.isfinite(t) else float(t)
+                       for t in np.asarray(truncate_values, object).tolist()]
+            if len(tvs) != len(imgs):
+                raise ValueError(f"{len(tvs)} thresholds for {len(imgs)} "
+                                 f"images")
 
-        filt = self.config.filtration
-        inert = math.inf if filt == "sublevel" else -math.inf
-        dtype = imgs[0].dtype
-        shape = (len(imgs), *bucket)
-        slot = self.staging.acquire((self.device,), shape, dtype,
-                                    threshold_dtype(dtype))
-        tvals = np.empty((len(imgs),), np.float64)
-        fixups: list = [None] * len(imgs)
-        for i, im in enumerate(imgs):
-            if im.dtype != dtype:
-                raise ValueError(f"mixed dtypes in one batch: {im.dtype} "
-                                 f"vs {dtype}")
-            t = tvs[i] if tvs[i] is not None else self.auto_threshold(im)
-            if tuple(im.shape) != bucket:
-                t = pad_threshold(im, t, filt)
-                fixups[i] = pad_fixup(im, filt)
-            slot.host_batch[i] = pad_image(im, bucket, filt)
-            tvals[i] = inert if t is None else t
-        slot.host_tvals.copy_(torch.as_tensor(tvals).to(
-            slot.host_tvals.dtype))
-        finish = self._begin_batch(shape, dtype, True,
-                                   self.staging.upload(slot))
+            filt = self.config.filtration
+            inert = math.inf if filt == "sublevel" else -math.inf
+            dtype = imgs[0].dtype
+            shape = (len(imgs), *bucket)
+            slot = self.staging.acquire((self.device,), shape, dtype,
+                                        threshold_dtype(dtype))
+            tvals = np.empty((len(imgs),), np.float64)
+            fixups: list = [None] * len(imgs)
+            for i, im in enumerate(imgs):
+                if im.dtype != dtype:
+                    raise ValueError(f"mixed dtypes in one batch: {im.dtype} "
+                                     f"vs {dtype}")
+                t = tvs[i] if tvs[i] is not None else self.auto_threshold(im)
+                if tuple(im.shape) != bucket:
+                    t = pad_threshold(im, t, filt)
+                    fixups[i] = pad_fixup(im, filt)
+                slot.host_batch[i] = pad_image(im, bucket, filt)
+                tvals[i] = inert if t is None else t
+            slot.host_tvals.copy_(torch.as_tensor(tvals).to(
+                slot.host_tvals.dtype))
+            slot = self.staging.upload(slot)
+        finish = self._begin_batch(shape, dtype, True, slot)
 
         def materialize():
             diag, stats = finish()
             rows = []
-            for i in range(len(imgs)):
-                d = Diagram(*(f[i] for f in diag))
-                if fixups[i] is not None:
-                    d = unpad_diagram(d, fixups[i], bucket)
-                rows.append(d)
+            with telemetry.span("repair"):
+                for i in range(len(imgs)):
+                    d = Diagram(*(f[i] for f in diag))
+                    if fixups[i] is not None:
+                        d = unpad_diagram(d, fixups[i], bucket)
+                    rows.append(d)
             return PHResult(stack_diagrams(rows), self.config.replace(
                 max_features=stats.final_max_features,
                 max_candidates=stats.final_max_candidates), stats, tvals)
@@ -1076,8 +1129,10 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         staged = image if isinstance(image, tiling.StagedTiles) else None
         if staged is None and hasattr(image, "halo_tile"):
             if truncate_value is None:
-                truncate_value = self.provider_threshold(image)
-            staged = self.stage_tiles(image, grid=grid)
+                with telemetry.span("threshold"):
+                    truncate_value = self.provider_threshold(image)
+            with telemetry.span("prep"), telemetry.span("stage"):
+                staged = self.stage_tiles(image, grid=grid)
         if staged is not None:
             if cfg.dtype is not None:       # apply the config dtype policy
                 staged = dataclasses.replace(staged, pvals=staged.pvals.to(
@@ -1088,8 +1143,11 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
             source, shape = staged, tuple(staged.shape)
             grid, dtype = tuple(staged.grid), staged.pvals.dtype
         else:
-            source = self.cast_input(image) if upload \
-                else self.cast_input_host(image)
+            if upload:
+                source = self.cast_input(image)
+            else:
+                with telemetry.span("prep"):
+                    source = self.cast_input_host(image)
             if source.dim() != 2:
                 raise ValueError(f"expected 2D image, got shape "
                                  f"{tuple(source.shape)}")
@@ -1126,7 +1184,8 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         tile overflow, ``max_features`` on merge overflow, each up to its
         own ceiling — or ``None`` when nothing may grow."""
         cfg = self.config
-        tile_of, merge_of = bool(out.tile_overflow), bool(out.merge_overflow)
+        tile_of = self.overflowed(out.tile_overflow)
+        merge_of = self.overflowed(out.merge_overflow)
         if not (tile_of or merge_of) or not cfg.auto_regrow:
             return None
         n = shape[0] * shape[1]
@@ -1156,8 +1215,9 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         mf, tf, tk = caps
         # final_max_candidates reports the per-tile candidate capacity
         # (the knob that regrows on the tiled path).
-        stats = RegrowStats(attempts, mf, tk, bool(out.tile_overflow)
-                            or bool(out.merge_overflow))
+        stats = RegrowStats(attempts, mf, tk,
+                            self.overflowed(out.tile_overflow)
+                            or self.overflowed(out.merge_overflow))
         eff = self.config.replace(
             max_features=mf,
             tile=self._tile_spec().replace(
@@ -1170,14 +1230,20 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         ``overlap.async_overflow``, else ``out`` as it is."""
         if not self._stream_results():
             return out
-        return start_d2h(out, self.overlap_counters).result()
+        with telemetry.span("d2h"):
+            return start_d2h(out, self.overlap_counters).result()
 
     def _threshold_tensor(self, truncate_value, dtype):
+        """The threshold as a 0-d tensor on the engine's device (a
+        ``threshold`` span); ``None`` without one."""
         if truncate_value is None:
             return None
-        return torch.tensor(truncate_value, dtype=threshold_dtype(dtype),
-                            device=self.device)
+        with telemetry.span("threshold"):
+            telemetry.readback(self.device)     # a pageable upload
+            return torch.tensor(truncate_value, dtype=threshold_dtype(dtype),
+                                device=self.device)
 
+    @telemetry.entry
     def run_tiled(self, image, truncate_value=None, *, grid=None,
                   ctx=None) -> PHResult:
         """Halo-tiled PH of one (possibly device-exceeding) 2D image.
@@ -1213,26 +1279,29 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         truncated = truncate_value is not None
         tv = self._threshold_tensor(truncate_value, dtype)
         caps, memo_key = self._tiled_capacities(shape, grid, dtype)
-        attempts = 0
-        while True:
+
+        def dispatch(caps):
             if isinstance(source, StagedTiles):
                 plan = self.tiled_stacks_plan(shape, dtype, grid, *caps,
                                               truncated)
-                out = plan(source.pvals, source.pgidx, tv)
-            else:
-                plan = self.tiled_plan(shape, dtype, grid, *caps, truncated)
-                out = plan(source, tv)
-            if attempts >= cfg.max_regrows:
-                break
+                return plan(source.pvals, source.pgidx, tv)
+            plan = self.tiled_plan(shape, dtype, grid, *caps, truncated)
+            return plan(source, tv)
+
+        attempts, out = 0, dispatch(caps)
+        while attempts < cfg.max_regrows:
             new = self._grow_tiled(caps, shape, grid, out, "tiled")
             if new is None:
                 break
             caps, attempts = new, attempts + 1
+            with telemetry.span("regrow"):
+                out = dispatch(caps)
         if attempts:
             self._remember(memo_key, caps)
         return self._tiled_result(self._streamed(out), caps, attempts, grid,
                                   truncate_value)
 
+    @telemetry.entry
     def run_delta(self, image, truncate_value=None, *, grid=None
                   ) -> PHResult:
         """Delta-recompute tiled PH of one frame against the engine's frame
@@ -1307,8 +1376,10 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         else:
             dirty, base = np.arange(n_tiles), None
 
-        attempts, fresh = 0, None
-        while True:
+        fresh = slots = None
+
+        def attempt():
+            nonlocal base, fresh, slots
             mf, tf, tk = caps
             bucket = delta_mod.dirty_bucket(len(dirty), n_tiles)
             if base is None:
@@ -1323,9 +1394,11 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
                 fresh = ab(pv, pg, tv)
             mg = self.delta_merge_plan(shape, dtype, grid, bucket, mf, tf,
                                        tk, truncated)
-            new_state, out = mg(base, fresh, slots, tv)
-            if attempts >= cfg.max_regrows:
-                break
+            return mg(base, fresh, slots, tv)
+
+        attempts = 0
+        new_state, out = attempt()
+        while attempts < cfg.max_regrows:
             new = self._grow_tiled(caps, shape, grid, out, "delta")
             if new is None:
                 break
@@ -1335,6 +1408,8 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
                 dirty, base, fresh, kind = np.arange(n_tiles), None, None, \
                     "miss"
             caps, attempts = new, attempts + 1
+            with telemetry.span("regrow"):
+                new_state, out = attempt()
         if attempts:
             self._remember(memo_key, caps)
 
@@ -1385,7 +1460,10 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
         births/deaths are rejected (the ±inf pad sentinels are allowed).
         """
         def dev(a):
-            return as_host_tensor(a).to(self.device)
+            t = as_host_tensor(a)
+            if t.device.type != self.device.type:
+                telemetry.readback(self.device)     # a pageable upload
+            return t.to(self.device)
 
         if isinstance(diagrams, tuple) and len(diagrams) == 3 \
                 and not isinstance(diagrams[0], (PHResult, Diagram)):
@@ -1438,6 +1516,7 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
 
         return self.get_plan(key, build)
 
+    @telemetry.entry
     def distance_matrix(self, diagrams, *, n_dirs: int = 16):
         """Pairwise distance matrices of a batch of diagrams.
 
@@ -1463,6 +1542,7 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
 
     # -- the distributed pipeline -------------------------------------------
 
+    @telemetry.entry
     def run_distributed(self, images, *, ctx=None, image_size: int = 512,
                         strategy: str = "part_LPT", work_log=None,
                         failure_injector=None, max_retries: int = 3,

@@ -18,26 +18,30 @@ whichever thread launches it.  The port therefore splits a round this way:
   computation, the overflow check and regrow, the pad repair, and the
   device-to-host copy of the results (:func:`start_d2h`).
 
-Which counters (:class:`OverlapCounters`) keep the reference's meaning:
+The counters (:class:`OverlapCounters`) keep the reference's meaning:
+one upload group per staged round (its batch, its thresholds and every
+device's rows count once), one D2H group per streamed output, blocking
+reads on the dispatch thread (zero with the overlap on: that thread only
+enqueues) and on the harvest thread.  A staged buffer is never consumed
+by the computation that reads it, so a regrow replay reads the same
+device buffer and no round is staged twice: nothing is ever re-staged.
 
-* ``h2d_transfers``, ``d2h_streams``, ``dispatch_syncs`` and
-  ``harvest_syncs`` do: one upload group per staged round (its batch, its
-  thresholds and every device's rows count once), one D2H group per
-  streamed output, blocking reads on the dispatch thread (zero with the
-  overlap on: that thread only enqueues) and on the harvest thread.
-* ``donation_replays`` stays zero: a staged buffer is never consumed by
-  the computation that reads it, so a regrow replay reads the same device
-  buffer and no round is staged twice.
+``resolve()`` runs in the :mod:`contextvars` context the pending result
+was made in, so the :mod:`repro_torch.telemetry` spans a harvest thread
+opens belong to the call that dispatched the round.
 
 Nothing here changes numerics: every overlapped path resolves to the bytes
 the synchronous path gives.
 """
 from __future__ import annotations
 
+import contextvars
 import threading
 from typing import Any, Callable
 
 import torch
+
+from repro_torch import telemetry
 
 __all__ = ["HostCopy", "OverlapCounters", "PendingResult", "StagingPool",
            "StagingSlot", "map_tensors", "start_d2h"]
@@ -57,13 +61,10 @@ class OverlapCounters:
     ``harvest_syncs``
         blocking reads where they belong: on a harvest thread (or inside
         an explicit ``resolve()``).
-    ``donation_replays``
-        replays that had to re-stage a consumed input buffer (always zero
-        in the port: a staged buffer is never consumed).
     """
 
     FIELDS = ("h2d_transfers", "d2h_streams", "dispatch_syncs",
-              "harvest_syncs", "donation_replays")
+              "harvest_syncs")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -108,6 +109,7 @@ class HostCopy:
 
     def result(self) -> Any:
         for ev in self._events:
+            telemetry.readback()
             ev.synchronize()
         return self._tree
 
@@ -237,24 +239,28 @@ class StagingPool:
             return s
 
     def upload(self, slot: StagingSlot) -> StagingSlot:
-        """Enqueue the slot's host-to-device copies (one group)."""
-        per = slot.host_batch.shape[0] // len(slot.devices)
-        for i, d in enumerate(slot.devices):
-            if d.type != "cuda":
-                continue
-            rows = slice(i * per, (i + 1) * per)
-            cs = self._copy_stream(d)
-            if slot.fresh:       # allocated on the current stream
-                cs.wait_stream(torch.cuda.current_stream(d))
-            with torch.cuda.stream(cs):
-                slot.batch[i].copy_(slot.host_batch[rows], non_blocking=True)
-                slot.tvals[i].copy_(slot.host_tvals[rows], non_blocking=True)
-            slot.batch[i].record_stream(cs)
-            slot.tvals[i].record_stream(cs)
-            ev = torch.cuda.Event()
-            ev.record(cs)
-            slot.uploaded[i] = ev
-        slot.fresh = False
+        """Enqueue the slot's host-to-device copies (one group, an
+        ``upload`` span)."""
+        with telemetry.span("upload"):
+            per = slot.host_batch.shape[0] // len(slot.devices)
+            for i, d in enumerate(slot.devices):
+                if d.type != "cuda":
+                    continue
+                rows = slice(i * per, (i + 1) * per)
+                cs = self._copy_stream(d)
+                if slot.fresh:       # allocated on the current stream
+                    cs.wait_stream(torch.cuda.current_stream(d))
+                with torch.cuda.stream(cs):
+                    slot.batch[i].copy_(slot.host_batch[rows],
+                                        non_blocking=True)
+                    slot.tvals[i].copy_(slot.host_tvals[rows],
+                                        non_blocking=True)
+                slot.batch[i].record_stream(cs)
+                slot.tvals[i].record_stream(cs)
+                ev = torch.cuda.Event()
+                ev.record(cs)
+                slot.uploaded[i] = ev
+            slot.fresh = False
         return slot
 
     def release(self, slot: StagingSlot) -> None:
@@ -280,13 +286,15 @@ class PendingResult:
     loop and the host materialization — so callers choose *where* that
     blocking happens (inline for the synchronous API, a harvest thread for
     the overlapped one).  An exception raised by ``finish`` is re-raised
-    on every later ``resolve()``.
+    on every later ``resolve()``.  ``finish`` runs in a copy of the
+    context the pending result was made in.
     """
 
-    __slots__ = ("_finish", "_lock", "_done", "_value", "_exc")
+    __slots__ = ("_finish", "_context", "_lock", "_done", "_value", "_exc")
 
     def __init__(self, finish: Callable[[], Any]):
         self._finish = finish
+        self._context = contextvars.copy_context()
         self._lock = threading.Lock()
         self._done = False
         self._value = None
@@ -296,12 +304,12 @@ class PendingResult:
         with self._lock:
             if not self._done:
                 try:
-                    self._value = self._finish()
+                    self._value = self._context.run(self._finish)
                 except BaseException as exc:
                     self._exc = exc
                 finally:
                     self._done = True
-                    self._finish = None     # drop closed-over buffers
+                    self._finish = self._context = None   # drop buffers
             if self._exc is not None:
                 raise self._exc
             return self._value

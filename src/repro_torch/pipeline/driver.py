@@ -33,6 +33,7 @@ with ``num_executors`` / ``estimate_costs`` / ``load_round`` /
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import json
 import time
@@ -171,8 +172,11 @@ def run_pipeline(pool, images, *, strategy: str = "part_LPT",
             nonlocal next_load
             while (loader is not None and len(staged_q) < prefetch
                    and next_load < len(round_list)):
-                staged_q.append(loader.submit(pool.load_round,
-                                              round_list[next_load]))
+                # In this thread's context: the loader's spans belong to
+                # the job's call.
+                staged_q.append(loader.submit(
+                    contextvars.copy_context().run, pool.load_round,
+                    round_list[next_load]))
                 next_load += 1
 
         try:

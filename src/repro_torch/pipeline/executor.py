@@ -37,6 +37,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import Diagram, stack_diagrams
 from repro_torch.core.grid import neg_inf
 from repro_torch.data import astro
@@ -49,7 +50,10 @@ from repro_torch.pipeline.scheduler import BucketRound, ImageMeta
 
 
 def _to_host(tree):
-    return map_tensors(lambda t: t.cpu(), tree)
+    def host(t):
+        telemetry.readback(t.device)
+        return t.cpu()
+    return map_tensors(host, tree)
 
 
 @dataclasses.dataclass
@@ -285,7 +289,8 @@ class ShardedPHExecutor:
             return plan(*slot.ready())
 
         _, finish = eng.begin_regrow(
-            dispatch, lambda outs: any(bool(d.overflow.any()) for d in outs),
+            dispatch,
+            lambda outs: any(eng.overflowed(d.overflow.any()) for d in outs),
             shape[1] * shape[2], "sharded",
             memo_key=("sharded", shape, str(dtype)), stream=stream)
 

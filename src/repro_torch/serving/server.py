@@ -80,6 +80,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.cache import LRUCache
 from repro_torch.core import Diagram
 from repro_torch.ph.config import ServeSpec
@@ -131,6 +132,7 @@ def _device_scope(device: torch.device):
 def _pageable(t: torch.Tensor) -> torch.Tensor:
     """A copy of ``t`` in pageable host memory of its own: no view of a
     pinned or batch-sized buffer outlives the batch that made it."""
+    telemetry.readback(t.device)
     return torch.empty(t.shape, dtype=t.dtype).copy_(t)
 
 

@@ -261,7 +261,6 @@ def test_run_distributed_equals_reference(want, mode):
     whole = _whole_rounds(m)
     assert got.rounds == whole + 1      # plus the one tiled round
     assert after["h2d_transfers"] - before["h2d_transfers"] == whole
-    assert after["donation_replays"] == 0
     if overlap is None:
         assert after["dispatch_syncs"] - before["dispatch_syncs"] \
             == got.rounds
@@ -301,7 +300,6 @@ def test_run_distributed_regrow_equals_reference():
         assert eng.regrow_log[-1]["to"] == tuple(ref.regrow_log[-1]["to"])
         snap = eng.overlap_counters.snapshot()
         assert snap["h2d_transfers"] == len(imgs)
-        assert snap["donation_replays"] == 0
 
 
 def test_failure_injection_and_resume_equal_reference(tmp_path, want):
