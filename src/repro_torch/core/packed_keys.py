@@ -16,6 +16,8 @@ NaNs are outside the contract (:func:`check_finite` rejects them).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -60,24 +62,24 @@ def check_finite(values, where: str = "image", *, allow_inf: bool = False):
 
     NaN admits no filtration order; ``±inf`` collides with the pad
     sentinels and is rejected unless ``allow_inf``.  Accepts numpy arrays
-    and tensors; a tensor on the card costs a readback for each test.
-    Returns ``values`` unchanged.
+    and tensors.  One min/max reduction answers both questions (NaN
+    propagates into both ends, an infinity is one of them) with no
+    temporary the size of the input; a tensor on the card costs one
+    readback.  Returns ``values`` unchanged.
     """
     with telemetry.span("check_finite"):
         if isinstance(values, torch.Tensor):
-            if not values.dtype.is_floating_point:
+            if not values.dtype.is_floating_point or values.numel() == 0:
                 return values
             telemetry.readback(values.device)
-            has_nan = bool(torch.isnan(values).any())
-            if not allow_inf:
-                telemetry.readback(values.device)
-            has_inf = not allow_inf and bool(torch.isinf(values).any())
+            lo, hi = torch.stack(torch.aminmax(values)).tolist()
         else:
             arr = np.asarray(values)
-            if arr.dtype.kind != "f":
+            if arr.dtype.kind != "f" or arr.size == 0:
                 return values
-            has_nan = bool(np.isnan(arr).any())
-            has_inf = not allow_inf and not bool(np.isfinite(arr).all())
+            lo, hi = float(np.min(arr)), float(np.max(arr))
+    has_nan = math.isnan(lo) or math.isnan(hi)
+    has_inf = not allow_inf and (math.isinf(lo) or math.isinf(hi))
     if has_nan:
         raise ValueError(
             f"non-finite pixel(s) in {where}: NaN values cannot be "

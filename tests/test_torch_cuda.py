@@ -1093,3 +1093,36 @@ def test_async_checkpoint_holds_values_before_in_place_update(tmp_path):
         assert torch.equal(got.get_parameter(k), before[k]), k
         moved += not torch.equal(p.detach().cpu(), before[k])
     assert moved > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("allow_inf", [False, True])
+def test_check_finite_one_readback_on_card(allow_inf):
+    """On the card the check is one min/max reduction and one readback,
+    with or without ``allow_inf``, and a bad last element still raises
+    the shared messages (NaN before inf)."""
+    _need_cuda()
+    from repro_torch import telemetry
+    from repro_torch.core.packed_keys import check_finite
+    x = torch.linspace(-3.0, 3.0, 4096 * 4096, device="cuda").view(4096, 4096)
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        assert check_finite(x, allow_inf=allow_inf) is x
+        counters = telemetry.snapshot()["counters"]
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+    assert counters == {("readbacks", "check_finite"): 1}
+    inf = x.clone()
+    inf.view(-1)[-1] = float("inf")
+    if allow_inf:
+        assert check_finite(inf, allow_inf=True) is inf
+    else:
+        with pytest.raises(ValueError, match="infinite values collide"):
+            check_finite(inf)
+    nan = inf.clone()
+    nan.view(-1)[0] = float("-inf")
+    nan.view(-1)[-1] = float("nan")
+    with pytest.raises(ValueError, match="NaN values cannot be ordered"):
+        check_finite(nan, allow_inf=allow_inf)

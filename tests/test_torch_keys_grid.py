@@ -110,6 +110,89 @@ def test_resolution_rules_and_boundary_checks():
     tpk.check_finite(torch.tensor([np.inf, 0.0]), allow_inf=True)
 
 
+NAN_MSG = "NaN values cannot be ordered"
+INF_MSG = "infinite values collide"
+# case: (values placed at (flat index, value), allow_inf, expected message)
+CHECK_CASES = {
+    "finite": ((), False, None),
+    "nan": (((37, np.nan),), False, NAN_MSG),
+    "pos_inf": (((63, np.inf),), False, INF_MSG),
+    "neg_inf": (((0, -np.inf),), False, INF_MSG),
+    "nan_and_inf": (((5, np.inf), (60, np.nan), (61, -np.inf)), False,
+                    NAN_MSG),
+    "allow_inf": (((3, np.inf), (40, -np.inf)), True, None),
+    "allow_inf_nan": (((3, np.inf), (63, np.nan)), True, NAN_MSG),
+}
+
+
+def _check_outcome(check, values, allow_inf):
+    """``"same"`` when ``check`` hands back ``values`` itself, else the
+    message it raised (or ``"other"`` for any other return)."""
+    try:
+        got = check(values, where="frame", allow_inf=allow_inf)
+    except ValueError as e:
+        return str(e)
+    return "same" if got is values else "other"
+
+
+def _assert_check_parity(ref_values, values, allow_inf, message):
+    want = _check_outcome(jpk.check_finite, ref_values, allow_inf)
+    got = _check_outcome(tpk.check_finite, values, allow_inf)
+    assert got == want
+    if message is None:
+        assert got == "same"
+    else:
+        assert message in got
+
+
+@pytest.mark.parametrize("case", list(CHECK_CASES))
+@pytest.mark.parametrize("dtype,container", [
+    ("float32", "tensor"), ("float32", "numpy"),
+    ("bfloat16", "tensor"),
+    ("float16", "tensor"), ("float16", "numpy"),
+    ("float64", "tensor"), ("float64", "numpy")])
+def test_check_finite_single_pass(dtype, container, case):
+    """One min/max pass keeps the reference's contract, message for
+    message: NaN wins over ±inf, ``allow_inf`` still rejects NaN, and the
+    caller's object comes back."""
+    placed, allow_inf, message = CHECK_CASES[case]
+    img = np.linspace(-3.0, 3.0, 64, dtype=np.float64).reshape(8, 8)
+    for i, v in placed:
+        img.reshape(-1)[i] = v
+    if dtype == "bfloat16":
+        ref_values = to_jax(img.astype(np.float32), dtype)
+        values = to_torch(img.astype(np.float32), dtype)
+    else:
+        ref_values = img.astype(dtype)
+        values = (ref_values.copy() if container == "numpy"
+                  else torch.from_numpy(ref_values.copy()))
+    _assert_check_parity(ref_values, values, allow_inf, message)
+
+
+@pytest.mark.parametrize("container", ["tensor", "numpy"])
+@pytest.mark.parametrize("kind", ["empty", "int32", "uint8", "bool"])
+def test_check_finite_passes_empty_and_integer(kind, container):
+    """Empty floating input and integer or bool input come back untouched,
+    as from the reference."""
+    ref_values = (np.zeros((0, 4), np.float32) if kind == "empty"
+                  else (np.arange(-32, 32).reshape(8, 8) % 7).astype(kind))
+    values = (ref_values.copy() if container == "numpy"
+              else torch.from_numpy(ref_values.copy()))
+    _assert_check_parity(ref_values, values, False, None)
+
+
+def test_check_finite_makes_no_full_size_host_temporary():
+    """On a host tensor the check allocates nothing near the input's size
+    (the two-test form made a 4·numel ``abs`` and numel-byte masks)."""
+    x = torch.rand(1024, 1024)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            profile_memory=True) as prof:
+        assert tpk.check_finite(x) is x
+    allocated = [e.cpu_memory_usage for e in prof.events()]
+    assert max(allocated, default=0) < x.numel(), allocated
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_shift2d_matches_reference(dtype):
     img = make_image(dtype, "gauss", seed=1, shape=(5, 7))
