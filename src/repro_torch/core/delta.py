@@ -15,6 +15,11 @@ frame that changed in ``D`` of ``T`` tiles needs:
    seam-merge replay — **bit-identical** to a cold ``run_tiled`` because
    clean rows store pre-labels, not stale resolved labels.
 
+Each step is a :mod:`repro_torch.telemetry` span: ``delta.hash``
+(:func:`frame_digests`), ``delta.stage`` (:func:`dirty_stacks`, the dirty
+windows' copy through their upload) and ``delta.scatter`` (the scatter in
+:func:`scatter_merge`, timed on the device by its CUDA events).
+
 Hashing covers the halo-*padded* window of each tile, so a change in a
 neighbor's border row dirties this tile too.  The engine surface is
 :meth:`repro_torch.ph.PHEngine.run_delta` / ``run_sequence``; the frame
@@ -116,16 +121,17 @@ def frame_digests(source, grid: tuple[int, int], *, algo: str = "blake2b",
     (verify mode).
     """
     h = hasher(algo)
-    if isinstance(source, StagedTiles):
-        rows = [_tile_bytes(source.pvals[t])
-                for t in range(source.pvals.shape[0])]
-    else:
-        arr = _host_frame(source)
-        validate_grid(tuple(arr.shape), tuple(grid))
-        padded = _padded_host(arr, filtration)
-        rows = [_tile_bytes(_window(padded, grid, t))
-                for t in range(grid[0] * grid[1])]
-    digests = tuple(h(b) for b in rows)
+    with telemetry.span("delta.hash"):
+        if isinstance(source, StagedTiles):
+            rows = [_tile_bytes(source.pvals[t])
+                    for t in range(source.pvals.shape[0])]
+        else:
+            arr = _host_frame(source)
+            validate_grid(tuple(arr.shape), tuple(grid))
+            padded = _padded_host(arr, filtration)
+            rows = [_tile_bytes(_window(padded, grid, t))
+                    for t in range(grid[0] * grid[1])]
+        digests = tuple(h(b) for b in rows)
     return digests, (tuple(rows) if with_bytes else None)
 
 
@@ -184,20 +190,21 @@ def dirty_stacks(source, grid: tuple[int, int], dirty, bucket: int,
     pad = bucket - len(dirty)
     if pad:
         dirty = np.concatenate([dirty, np.full(pad, dirty[-1])])
-    if isinstance(source, StagedTiles):
-        shape = source.shape
-        dev = source.pvals.device
-        telemetry.readback(dev)     # a pageable upload
-        pv = source.pvals[torch.as_tensor(dirty, device=dev)]
-    else:
-        arr = _host_frame(source)
-        shape = tuple(arr.shape)
-        dev = torch.device("cuda" if device is None else device)
-        padded = _padded_host(arr, filtration)
-        telemetry.readback(dev)     # a pageable upload
-        pv = torch.stack([_window(padded, grid, int(t))
-                          for t in dirty]).to(dev)
-    pg = halo_gidx_stack(shape, grid, dirty, dev)
+    with telemetry.span("delta.stage"):
+        if isinstance(source, StagedTiles):
+            shape = source.shape
+            dev = source.pvals.device
+            telemetry.readback(dev)     # a pageable upload
+            pv = source.pvals[torch.as_tensor(dirty, device=dev)]
+        else:
+            arr = _host_frame(source)
+            shape = tuple(arr.shape)
+            dev = torch.device("cuda" if device is None else device)
+            padded = _padded_host(arr, filtration)
+            telemetry.readback(dev)     # a pageable upload
+            pv = torch.stack([_window(padded, grid, int(t))
+                              for t in dirty]).to(dev)
+        pg = halo_gidx_stack(shape, grid, dirty, dev)
     return pv, pg, dirty
 
 
@@ -247,15 +254,17 @@ def scatter_merge(state: TileBoundaryState, fresh: TileBoundaryState,
                                                 state.root_val.dtype)
     dev = state.root_val.device
     truncated, tvi = internal_threshold(tv, filtration, dev)
-    telemetry.readback(dev)         # a pageable upload
-    idx = torch.as_tensor(np.asarray(slots, np.int64), device=dev)
 
     def put(c, f):
         out = c.clone()
         out[idx] = f
         return out
 
-    new_state = TileBoundaryState(*(put(c, f) for c, f in zip(state, fresh)))
+    with telemetry.span("delta.scatter", dev):
+        telemetry.readback(dev)     # a pageable upload
+        idx = torch.as_tensor(np.asarray(slots, np.int64), device=dev)
+        new_state = TileBoundaryState(*(put(c, f)
+                                        for c, f in zip(state, fresh)))
     td = merge_tile_state(new_state, tvi, truncated=truncated,
                           merge_keys=merge_keys, **kwargs)
     return new_state, negate_diagram(td, filtration)

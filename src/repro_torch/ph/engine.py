@@ -45,8 +45,12 @@ Counterpart of ``repro.ph.engine`` for the whole-image path:
   call, and its parts are spans: ``prep`` (``check_finite``, ``cast``,
   ``stage``, ``upload``), ``threshold``, ``grid`` (``choose_grid``),
   ``dedupe``, ``dispatch`` (one per plan call), ``regrow`` (around each
-  replay), ``overflow_check``, ``d2h`` and ``repair``; the recorder is
-  off unless enabled.
+  replay), ``overflow_check``, ``d2h`` and ``repair``, and on
+  ``run_delta`` ``delta.hash``, ``delta.lookup`` (the frame store's
+  lookup and put), ``delta.stage`` and ``delta.scatter`` with the
+  counters ``delta_full``/``delta_partial``/``delta_miss`` (one a call)
+  and ``delta_dirty_tiles`` (real dirty tiles whose A+B re-ran, bucket
+  padding left out); the recorder is off unless enabled.
 
 The engine runs on the CUDA device unless the caller passes another
 ``device`` (the tests pass ``"cpu"``); without CUDA, ``PHEngine()`` raises
@@ -1365,9 +1369,11 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
             cache = self._delta_cache
 
         caps, memo_key = self._tiled_capacities(shape, grid, dtype)
-        kind, entry, dirty_mask = cache.lookup(
-            context, digests, capacities=caps, tile_bytes=raw)
+        with telemetry.span("delta.lookup"):
+            kind, entry, dirty_mask = cache.lookup(
+                context, digests, capacities=caps, tile_bytes=raw)
         if kind == "hit":
+            telemetry.count("delta_full")
             return dataclasses.replace(
                 entry.result,
                 delta=delta_mod.DeltaStats(n_tiles, 0, "full"))
@@ -1389,6 +1395,7 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
                 pv, pg, slots = delta_mod.dirty_stacks(
                     source, grid, dirty, bucket, cfg.filtration,
                     device=self.device)
+                telemetry.count("delta_dirty_tiles", len(dirty))
                 ab = self.delta_ab_plan(tile_shape, dtype, bucket, tf, tk,
                                         truncated)
                 fresh = ab(pv, pg, tv)
@@ -1414,14 +1421,16 @@ tiled_pixhomology`): ``mf`` is the global diagram capacity, ``tf``/``tk``
             self._remember(memo_key, caps)
 
         hit = "partial" if kind == "partial" else "miss"
+        telemetry.count(f"delta_{hit}")
         dstats = delta_mod.DeltaStats(n_tiles, int(len(np.unique(dirty))),
                                       hit)
         result = self._tiled_result(self._streamed(out), caps, attempts,
                                     grid, truncate_value, dstats)
         # put() on an existing (context, digests) key replaces in place.
-        cache.put(context, FrameCacheEntry(
-            digests=digests, state=new_state, result=result,
-            capacities=caps, tile_bytes=raw))
+        with telemetry.span("delta.lookup"):
+            cache.put(context, FrameCacheEntry(
+                digests=digests, state=new_state, result=result,
+                capacities=caps, tile_bytes=raw))
         return result
 
     def run_sequence(self, frames, truncate_values=None, *, grid=None):

@@ -31,9 +31,12 @@ runs ``resolve()`` in the context it was created in, so the stages a
 harvest thread runs keep the call's id.
 
 Counters (:func:`count`) are keyed by ``(counter, innermost open span)``.
-The program keeps one, ``readbacks`` (:func:`readback`): every place its
-own code blocks the host on the device.  :func:`snapshot` returns the
-spans and counters held in memory; :func:`reset` clears them.
+The program keeps ``readbacks`` (:func:`readback`): every place its own
+code blocks the host on the device; and, on ``run_delta``, the frame
+store's kinds of call (``delta_full``, ``delta_partial``, ``delta_miss``)
+and the real dirty tiles whose phases A+B re-ran (``delta_dirty_tiles``).
+:func:`snapshot` returns the spans and counters held in memory;
+:func:`reset` clears them.
 """
 from __future__ import annotations
 
@@ -190,14 +193,14 @@ def span(name: str, device=None):
                  None if device is None else torch.device(device))
 
 
-def count(counter: str) -> None:
-    """Add one to ``counter`` under the innermost open span."""
+def count(counter: str, n: int = 1) -> None:
+    """Add ``n`` to ``counter`` under the innermost open span."""
     if not _on:
         return
     cur = _open.get()
     key = (counter, None if cur is None else cur.name)
     with _lock:
-        _counters[key] = _counters.get(key, 0) + 1
+        _counters[key] = _counters.get(key, 0) + n
 
 
 def readback(device=None) -> None:

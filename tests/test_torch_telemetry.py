@@ -249,3 +249,90 @@ def test_concurrent_spans_and_counts_lose_nothing(recorder):
     steps = [s for s in snap["spans"] if s.name == "step"]
     assert len(roots) == n_threads and len(steps) == n_threads * n_iter
     assert all(s.parent == s.call and s.call in roots for s in steps)
+
+
+# -- run_delta: the frame store's spans and counters ------------------------
+
+def _delta_engine():
+    from repro_torch.ph import DeltaSpec
+    return _engine(tile=TileSpec(grid=(4, 4)), delta=DeltaSpec())
+
+
+def _dirtied(frame, tiles):
+    """``frame`` with one pixel raised well inside each of ``tiles``
+    (16² tiles of a 64² frame)."""
+    out = frame.copy()
+    for t in tiles:
+        out[(t // 4) * 16 + 8, (t % 4) * 16 + 8] += 9.0
+    return out
+
+
+DELTA_KINDS = ("delta_full", "delta_partial", "delta_miss")
+
+
+def test_delta_spans_and_counters_for_a_miss_a_partial_and_a_full_hit(
+        recorder):
+    base = _frames(1, 64)[0]
+    changed = _dirtied(base, [5])
+    eng = _delta_engine()
+    hits = [eng.run_delta(x, 0.5).delta.hit for x in (base, changed,
+                                                       changed)]
+    assert hits == ["miss", "partial", "full"]
+    snap = recorder.snapshot()
+    spans = snap["spans"]
+    by_id = {s.id: s for s in spans}
+    roots = sorted((s for s in spans if s.root), key=lambda s: s.t0_ns)
+    assert [r.name for r in roots] == ["run_delta"] * 3
+    _check_calls(spans, 3, {"delta.hash", "delta.lookup"})
+
+    def named(call):
+        return sorted(s.name for s in spans if s.call == call.call
+                      and s.name.startswith("delta."))
+
+    worked = ["delta.hash", "delta.lookup", "delta.lookup",
+              "delta.scatter", "delta.stage"]
+    assert named(roots[0]) == named(roots[1]) == worked
+    assert named(roots[2]) == ["delta.hash", "delta.lookup"]
+    for s in spans:
+        if s.name in ("delta.hash", "delta.lookup", "delta.stage"):
+            assert by_id[s.parent].root
+        elif s.name == "delta.scatter":     # inside the merge plan's call
+            assert by_id[s.parent].name == "dispatch"
+            assert s.events is None         # a CPU stage has no events
+    counts = {}
+    for (name, _), n in snap["counters"].items():
+        counts[name] = counts.get(name, 0) + n
+    assert {k: counts.get(k, 0) for k in DELTA_KINDS} == dict.fromkeys(
+        DELTA_KINDS, 1)
+    assert counts["delta_dirty_tiles"] == 16 + 1
+
+
+def test_delta_dirty_tiles_leave_out_the_bucket_padding(recorder):
+    base = _frames(1, 64)[0]
+    eng = _delta_engine()
+    eng.run_delta(base, 0.5)
+    recorder.reset()
+    res = eng.run_delta(_dirtied(base, [0, 6, 13]), 0.5)
+    assert res.delta.hit == "partial" and res.delta.n_dirty == 3
+    from repro_torch.core.delta import dirty_bucket
+    assert dirty_bucket(3, 16) == 4
+    counters = recorder.snapshot()["counters"]
+    assert sum(n for (name, _), n in counters.items()
+               if name == "delta_dirty_tiles") == 3
+
+
+def test_delta_with_the_recorder_off_records_nothing(monkeypatch):
+    telemetry.disable()
+    telemetry.reset()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("made while the recorder is off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    base = _frames(1, 64)[0]
+    eng = _delta_engine()
+    hits = [eng.run_delta(x, 0.5).delta.hit
+            for x in (base, _dirtied(base, [2]), base)]
+    assert hits == ["miss", "partial", "full"]
+    assert telemetry.snapshot() == {"spans": [], "counters": {}}
